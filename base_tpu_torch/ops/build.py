@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels.
+
+`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
+plain C interface, which is loaded with ctypes.  The library lands in
+`base_tpu_torch/_build/` (git-ignored) under a name keyed on a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  The build runs at the first CUDA launch, never at import; a
+missing `nvcc` or a failed build raises.  No `--use_fast_math`: the erf
+polynomial, expf in the far tails and the 1e-15 / 1e-12 floors of the
+marginal kernels need IEEE float32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: tensor pointers, then int sizes, then device and stream.
+_SIGNATURES = {
+    "btt_table_fwd": [_P] * 9 + [_I] * 4 + [_I, _P],
+    "btt_table_bwd": [_P] * 18 + [_I] * 4 + [_I, _P],
+    "btt_marglik_fwd": [_P] * 8 + [_I] * 4 + [_I, _P],
+    "btt_marglik_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(var)
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels of base_tpu_torch cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libbtt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/ unless the library for these sources exists.  The
+    compiler's output (ptxas register and shared-memory report) is kept
+    beside the library as `<name>.log`."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = out.with_suffix(".log")
+        log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
+            )
+        os.replace(tmp, out)  # atomic: concurrent builders see all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.btt_error_string.argtypes = [ctypes.c_int]
+    lib.btt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, tensors, sizes) -> None:
+    """Launch C entry point `name` on the current CUDA stream of the
+    tensors' device; raise if the launch was refused."""
+    dev = tensors[0].device
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [t.data_ptr() for t in tensors] + [int(s) for s in sizes]
+    status = getattr(lib, name)(*args, dev.index or 0, stream)
+    if status != 0:
+        msg = lib.btt_error_string(status).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({status})")
+
+
+def check(name: str, t: torch.Tensor, shape: tuple) -> None:
+    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape`."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,113 @@
+"""Parity of the port's tensor primitives (base_tpu_torch.ops.special,
+.interp) with base_tpu on identical float32 inputs made with numpy."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from base_tpu.ops import interp as jinterp
+from base_tpu.ops import special as jspecial
+from base_tpu_torch.ops import interp as tinterp
+from base_tpu_torch.ops import special as tspecial
+
+torch.set_num_threads(1)
+
+
+def _intervals(region: str, n: int = 4000):
+    rng = np.random.default_rng({"bulk": 0, "right": 1, "left": 2,
+                                 "switch": 3}[region])
+    if region == "bulk":
+        u0 = rng.uniform(-4.0, 4.0, n)
+    elif region == "right":       # one-sided far right tail (Mills)
+        u0 = rng.uniform(3.0, 40.0, n)
+    elif region == "left":        # one-sided far left tail
+        u0 = -rng.uniform(3.0, 40.0, n) - 5.0
+    else:                         # both sides of the +-3.5 switch
+        u0 = np.concatenate([3.5 + rng.uniform(-1e-3, 1e-3, n // 2),
+                             -3.5 - rng.uniform(-1e-3, 1e-3, n // 2)])
+        u0[n // 2:] -= 2.0        # so u1 = u0 + width straddles -3.5
+    width = 10.0 ** rng.uniform(-3.0, 1.0, n)
+    return u0.astype(np.float32), (u0 + width).astype(np.float32)
+
+
+@pytest.mark.parametrize("region", ["bulk", "right", "left", "switch"])
+def test_phi_interval_scaled(region):
+    """Same formula in both packages (A-S erf, +-3.5 Mills switch, the
+    min(unear_sq, 13) clamp).  The erf branch is a difference of two
+    erf values, each carrying ~1e-7 absolute float32 error from exp ulps,
+    then multiplied by exp(min(unear_sq, 13) / 2); so the bound is rtol
+    1e-5 plus 2e-7 times that scale."""
+    u0, u1 = _intervals(region)
+    d_j, un_j = jspecial.phi_interval_scaled(jnp.asarray(u0), jnp.asarray(u1))
+    d_t, un_t = tspecial.phi_interval_scaled(torch.from_numpy(u0),
+                                             torch.from_numpy(u1))
+    d_j, un_j, d_t = np.asarray(d_j), np.asarray(un_j), d_t.numpy()
+    np.testing.assert_allclose(un_t.numpy(), un_j, rtol=1e-6, atol=0)
+    bound = 1e-5 * np.abs(d_j) + 2e-7 * np.exp(0.5 * np.minimum(un_j, 13.0))
+    assert np.all(np.abs(d_t - d_j) <= bound), np.max(np.abs(d_t - d_j)
+                                                      / bound)
+    assert np.all(np.isfinite(d_t))
+
+
+def test_masked_logsumexp():
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 30, (6, 50)).astype(np.float32)
+    mask = rng.random((6, 50)) > 0.5
+    mask[2] = False                        # an all-masked row -> NEG_INF
+    want = np.asarray(jspecial.masked_logsumexp(jnp.asarray(x),
+                                                jnp.asarray(mask)))
+    got = tspecial.masked_logsumexp(torch.from_numpy(x),
+                                    torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    assert got[2] == np.float32(tspecial.NEG_INF)
+
+
+def _axis_queries(seed: int):
+    rng = np.random.default_rng(seed)
+    axis = np.sort(rng.uniform(0.1, 3.0, 40)).astype(np.float32)
+    q = rng.uniform(-0.5, 3.5, 300).astype(np.float32)   # incl. off-hull
+    q[:40] = axis                                        # exact node hits
+    return axis, q
+
+
+def test_locate():
+    axis, q = _axis_queries(5)
+    j = jinterp.locate(jnp.asarray(axis), jnp.asarray(q))
+    t = tinterp.locate(torch.from_numpy(axis), torch.from_numpy(q))
+    np.testing.assert_array_equal(t.idx.numpy(), np.asarray(j.idx))
+    np.testing.assert_allclose(t.frac.numpy(), np.asarray(j.frac),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(t.inside.numpy(), np.asarray(j.inside))
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_hat_weight_matrix(smooth):
+    axis, q = _axis_queries(6)
+    want = np.asarray(jinterp.hat_weight_matrix(jnp.asarray(axis),
+                                                jnp.asarray(q), smooth))
+    got = tinterp.hat_weight_matrix(torch.from_numpy(axis),
+                                    torch.from_numpy(q), smooth).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_interp1d_dense(smooth):
+    """Chain-batched lookup [C, E] x [C, E, B] x [C, Q] equals base_tpu's
+    unbatched lookup per chain (float32 matmul reassociation: 1e-5)."""
+    axes, ys, qs = [], [], []
+    for c in range(3):
+        axis, q = _axis_queries(10 + c)
+        axes.append(axis)
+        qs.append(q)
+        ys.append(np.random.default_rng(c).normal(15, 3, (40, 8))
+                  .astype(np.float32))
+    got = tinterp.interp1d_dense(torch.from_numpy(np.stack(axes)),
+                                 torch.from_numpy(np.stack(ys)),
+                                 torch.from_numpy(np.stack(qs)),
+                                 smooth=smooth).numpy()
+    for c in range(3):
+        want = np.asarray(jinterp.interp1d_dense(
+            jnp.asarray(axes[c]), jnp.asarray(ys[c]), jnp.asarray(qs[c]),
+            smooth=smooth))
+        np.testing.assert_allclose(got[c], want, rtol=0, atol=1e-4)
