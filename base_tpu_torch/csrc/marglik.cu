@@ -11,17 +11,30 @@
 // saved output and the analytic d log I / d(alpha, beta, gamma) from the
 // [0,1]-truncated Gaussian moments, and sums over stars into dlo, dhi, dlogw.
 //
-// What bounds it on the H100: per (star, segment) ~7 FMAs per band plus one
-// rsqrt, three exp and two divisions; at the bench shapes (C = 64, S = 100,
-// T = 504, B = 8) that is ~3.2M elements per call and well under 1 GFLOP,
-// while the inputs are < 2 MB.  It is bound by instruction latency of the
-// serial per-thread loops and by how many blocks fill the 132 SMs.  Design:
-// forward -- grid (star tiles of 64, chains), one thread per star, segment
-// tiles of the chain's table staged through shared memory, an online
-// max/sum per star in registers; backward -- grid (segment tiles of 64,
-// chains), one thread per segment looping over all stars in order (star
-// tiles staged through shared memory), so the sum over stars has a fixed
-// order with no atomics and same-seed runs stay bit-identical.
+// What bounds it on the H100: per (chain, star, segment) ~11 flops per band
+// for the band contraction plus core_width's rsqrt, ~5 exp and 2-4
+// divisions (~190 flops at B = 8); at the bench shapes (C = 64, S = 100,
+// T = 504) that is ~3.2M elements and ~0.6 GFLOP per call against ~2.3 MB
+// of inputs, so FP32 throughput bounds it (~9 us at 67 TFLOP/s).  Each
+// element is a long dependent chain, so the design is about latency and
+// filling the card.
+//
+// Forward (kernel 3), redesigned for Hopper: one warp per (chain, star),
+// FWD_WARPS stars of one chain per block, grid (star groups, chains) -- 832
+// blocks of 256 threads at config-1.  The block stages the chain's table
+// (lo, d = hi - lo, logw, mask) in shared memory, band-major with a padded
+// row so that lanes read consecutive words; tiles of up to `fwd_tile`
+// segments (all of T = 504 at B = 8, three tiles at T = 2016) fit in 48 KB.
+// Lane l takes segments t = l (mod 32) in order and keeps its own online
+// (max, sum); the 32 partial (m, s) then merge through a fixed xor-shuffle
+// tree, (m, s) + (m', s') = (M, s e^(m - M) + s' e^(m' - M)), written without
+// FMA contraction so that the merge is symmetric.  No atomics: the result is
+// bit-identical from run to run, and independent of the tile size.
+//
+// Backward (kernel 4, unchanged since the first port): grid (segment tiles
+// of 64, chains), one thread per segment looping over all stars in order
+// (star tiles staged through shared memory), so the sum over stars has a
+// fixed order with no atomics and same-seed runs stay bit-identical.
 //
 // phi_interval_scaled below is a line-for-line copy of
 // base_tpu_torch/ops/special.py (and base_tpu/ops/special.py): the A-S
@@ -38,8 +51,8 @@ constexpr float INV_SQRT2 = 0.7071067811865476f;
 constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 constexpr float ALPHA_EPS = 1e-12f;
 constexpr float FLAT_EPS = 3e-7f;
-constexpr int FWD_STARS = 64;     // stars (threads) per forward block
-constexpr int FWD_SEG_TILE = 256; // segments staged per shared-memory tile
+constexpr int FWD_WARPS = 8;      // stars (warps) per forward block
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int BWD_SEGS = 64;      // segments (threads) per backward block
 constexpr int BWD_STAR_TILE = 128;
 
@@ -117,7 +130,25 @@ __device__ __forceinline__ Segment core_width(float alpha, float beta,
   return g;
 }
 
-__global__ void marglik_fwd_kernel(const float* __restrict__ obs,
+// Segments per staged tile: a multiple of 32 (so lane l keeps t = l mod 32
+// across tiles) whose band-major rows, padded by one word, fit in 48 KB.
+int fwd_tile(int T, int B) {
+  const int fit = (48 * 1024 / static_cast<int>(sizeof(float)) - 2 * B) /
+                  (2 * B + 2) / 32 * 32;
+  const int whole = (T + 31) / 32 * 32;
+  return whole < fit ? whole : fit;
+}
+
+__device__ __forceinline__ void merge(float& m, float& s, float m2,
+                                      float s2) {
+  const float M = fmaxf(m, m2);
+  s = __fadd_rn(__fmul_rn(s, expf(m - M)), __fmul_rn(s2, expf(m2 - M)));
+  m = M;
+}
+
+// At most 64 registers a thread, so that four blocks (32 warps) fit an SM.
+__global__ void __launch_bounds__(FWD_WARPS * 32, 4)
+marglik_fwd_kernel(const float* __restrict__ obs,
                                    const float* __restrict__ iv,
                                    const float* __restrict__ log_norm,
                                    const float* __restrict__ lo,
@@ -125,15 +156,17 @@ __global__ void marglik_fwd_kernel(const float* __restrict__ obs,
                                    const float* __restrict__ logw,
                                    const float* __restrict__ mask,
                                    float* __restrict__ out, int S, int T,
-                                   int B) {
+                                   int B, int TS) {
   extern __shared__ float sh[];
-  float* s_lo = sh;                         // [FWD_SEG_TILE, B]
-  float* s_d = s_lo + FWD_SEG_TILE * B;     // [FWD_SEG_TILE, B]
-  float* s_lw = s_d + FWD_SEG_TILE * B;     // [FWD_SEG_TILE]
-  float* s_mk = s_lw + FWD_SEG_TILE;        // [FWD_SEG_TILE]
+  const int TP = TS + 1;                    // padded row: no bank conflicts
+  float* s_lo = sh;                         // [B, TP]
+  float* s_d = s_lo + B * TP;               // [B, TP]
+  float* s_lw = s_d + B * TP;               // [TS]
+  float* s_mk = s_lw + TS;                  // [TS]
   const int c = blockIdx.y;
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = s < S;
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+  const bool active = s < S;                // warp-uniform
   float o[btt::MAX_B], w[btt::MAX_B];
 #pragma unroll
   for (int b = 0; b < btt::MAX_B; ++b) {
@@ -144,14 +177,16 @@ __global__ void marglik_fwd_kernel(const float* __restrict__ obs,
   const size_t t0c = static_cast<size_t>(c) * T;
   float m = NEG_INF;
   float acc = 0.0f;
-  for (int t0 = 0; t0 < T; t0 += FWD_SEG_TILE) {
-    const int nt = min(FWD_SEG_TILE, T - t0);
+  for (int t0 = 0; t0 < T; t0 += TS) {
+    const int nt = min(TS, T - t0);
     __syncthreads();  // previous tile fully consumed
     for (int i = threadIdx.x; i < nt * B; i += blockDim.x) {
+      const int tt = i / B;
+      const int b = i - tt * B;
       const size_t k = tb0 + static_cast<size_t>(t0) * B + i;
       const float l = lo[k];
-      s_lo[i] = l;
-      s_d[i] = hi[k] - l;
+      s_lo[b * TP + tt] = l;
+      s_d[b * TP + tt] = hi[k] - l;
     }
     for (int i = threadIdx.x; i < nt; i += blockDim.x) {
       s_lw[i] = logw[t0c + t0 + i];
@@ -159,14 +194,14 @@ __global__ void marglik_fwd_kernel(const float* __restrict__ obs,
     }
     __syncthreads();
     if (!active) continue;
-    for (int tt = 0; tt < nt; ++tt) {
+    for (int tt = lane; tt < nt; tt += 32) {
       if (!(s_mk[tt] > 0.5f)) continue;  // masked segments add exactly 0
       float alpha = 0.0f, beta = 0.0f, gamma = 0.0f;
 #pragma unroll
       for (int b = 0; b < btt::MAX_B; ++b) {
         if (b < B) {
-          const float d = s_d[tt * B + b];
-          const float r = o[b] - s_lo[tt * B + b];
+          const float d = s_d[b * TP + tt];
+          const float r = o[b] - s_lo[b * TP + tt];
           alpha += w[b] * d * d;
           beta += w[b] * r * d;
           gamma += w[b] * r * r;
@@ -182,6 +217,13 @@ __global__ void marglik_fwd_kernel(const float* __restrict__ obs,
     }
   }
   if (!active) return;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float m2 = __shfl_xor_sync(FULL_MASK, m, off);
+    const float a2 = __shfl_xor_sync(FULL_MASK, acc, off);
+    merge(m, acc, m2, a2);
+  }
+  if (lane != 0) return;
   const float v = acc > 0.0f ? m + logf(acc + 1e-15f) : NEG_INF;
   out[static_cast<size_t>(c) * S + s] = v + log_norm[s];
 }
@@ -293,11 +335,13 @@ extern "C" int btt_marglik_fwd(const float* obs, const float* iv,
                                const float* mask, float* out, int C, int S,
                                int T, int B, int device, void* stream) {
   cudaSetDevice(device);
-  dim3 grid((S + FWD_STARS - 1) / FWD_STARS, C);
-  const size_t smem = static_cast<size_t>(FWD_SEG_TILE) * (2 * B + 2) * sizeof(float);
-  marglik_fwd_kernel<<<grid, FWD_STARS, smem,
+  const int TS = fwd_tile(T, B);
+  dim3 grid((S + FWD_WARPS - 1) / FWD_WARPS, C);
+  const size_t smem =
+      (static_cast<size_t>(2 * B) * (TS + 1) + 2 * TS) * sizeof(float);
+  marglik_fwd_kernel<<<grid, FWD_WARPS * 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B);
+      obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS);
   return static_cast<int>(cudaGetLastError());  // launch status
 }
 

@@ -20,7 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from base_tpu.grids import filters as filt
+from base_tpu_torch.grids import filters as filt
 from base_tpu_torch.grids.isochrone import IsochroneGrid, pack_ragged
 
 THETA_SUN = 5040.0 / 5772.0

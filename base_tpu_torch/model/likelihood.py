@@ -28,9 +28,12 @@ from base_tpu_torch.model import priors
 from base_tpu_torch.model.stardata import MSStars
 from base_tpu_torch.ops.marglik import fused_log_marginals, marglik_fwd_plain
 from base_tpu_torch.ops.special import NEG_INF, masked_logsumexp
-from base_tpu_torch.ops.table import LN10_04, fused_combined_node_mags
+from base_tpu_torch.ops.table import (
+    LN10_04,
+    base_axis_columns,
+    fused_combined_node_mags,
+)
 
-_AXIS_HUGE = 1.0e30
 
 
 class SegmentTable(NamedTuple):
@@ -167,14 +170,10 @@ def fused_table_inputs(
     m2N = m2.reshape(C, 1, E * Q)
     litN = companion_lit_weight(
         m2, sec_iso.min_mass[:, None, None]).reshape(C, 1, E * Q)
-    x = sec_iso.mass_sorted                                   # [C, E2]
-    xl = torch.cat([x[:, :1] - _AXIS_HUGE, x[:, :-1]], dim=1)[:, :, None]
-    xr = torch.cat([x[:, 1:], x[:, -1:] + _AXIS_HUGE], dim=1)[:, :, None]
-    inv_dl = 1.0 / (x[:, :, None] - xl).clamp_min(1e-30)
-    inv_dr = 1.0 / (xr - x[:, :, None]).clamp_min(1e-30)
+    xl, inv_dl, xr, inv_dr = base_axis_columns(sec_iso.mass_sorted)
     secT = (sec_iso.mags + dist[:, None, :]).transpose(1, 2)  # [C, B, E2]
     return (app1N, m2N.contiguous(), litN.contiguous(), secT.contiguous(),
-            xl.contiguous(), inv_dl, xr.contiguous(), inv_dr)
+            xl, inv_dl, xr, inv_dr)
 
 
 def build_segment_table_fused(

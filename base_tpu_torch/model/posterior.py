@@ -13,8 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from base_tpu import constants as C
-from base_tpu.grids import filters as filt
+from base_tpu_torch import constants as C
+from base_tpu_torch.grids import filters as filt
 from base_tpu_torch.grids.isochrone import (
     IsochroneGrid,
     derive_isochrone,

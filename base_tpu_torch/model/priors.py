@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from base_tpu import constants as C
+from base_tpu_torch import constants as C
 
 LN10 = 2.302585092994046
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
+`nvcc` compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, which is loaded with ctypes.  The library lands in
 `base_tpu_torch/_build/` (git-ignored) under a name keyed on a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -25,9 +26,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -71,30 +72,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbtt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> list[tuple[list[str], int, str]]:
+    """Run the commands side by side; (command, exit code, output) each,
+    after every process has ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, p in procs:
+        text, _ = p.communicate()
+        results.append((cmd, p.returncode, text))
+    return results
+
+
 def build() -> Path:
     """Compile csrc/ unless the library for these sources exists.  The
-    compiler's output (ptxas register and shared-memory report) is kept
+    compilers' output (ptxas register and shared-memory report) is kept
     beside the library as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = out.with_suffix(".log")
-        log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(str(Path(tmp) / f"{src.stem}.o"))
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC),
+                         "-o", objs[-1], str(src)])
+        results = _run_all(cmds)
+        so = str(Path(tmp) / out.name)
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run_all([[nvcc, *ARCH, "-shared", "-o", so, *objs]])
+        out.with_suffix(".log").write_text("".join(
+            " ".join(cmd) + "\n" + text for cmd, _, text in results))
+        failed = [(cmd, rc, text) for cmd, rc, text in results if rc != 0]
+        if failed:
+            cmd, rc, text = failed[0]
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders see all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
+        os.replace(so, out)  # atomic: a concurrent build sees all or none
     return out
 
 
@@ -108,7 +125,15 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.btt_error_string.argtypes = [ctypes.c_int]
     lib.btt_error_string.restype = ctypes.c_char_p
+    lib.btt_table_bwd_scratch.argtypes = [_I] * 4
+    lib.btt_table_bwd_scratch.restype = ctypes.c_longlong
     return lib
+
+
+@functools.cache
+def table_bwd_scratch(C: int, B: int, N: int, E2: int) -> int:
+    """Floats of scratch kernel 2 needs for its per-tile partial sums."""
+    return int(library().btt_table_bwd_scratch(C, B, N, E2))
 
 
 def launch(name: str, tensors, sizes) -> None:

@@ -13,6 +13,10 @@ through the kernels, CPU tensors through the plain versions beside them
 backward carries the cotangent through the flux combine and through the
 smoothstep weights into the node masses, the lit ramp, the secondary table
 and the four base-axis vectors.
+
+Kernel 2 evaluates the weights sparsely: `hat_zero_bounds` and `hat_window`
+below are the rule for which base-axis entries a node can touch, and
+`csrc/table.cu` follows it operation for operation.
 """
 from __future__ import annotations
 
@@ -26,6 +30,78 @@ INV_LN10_04 = 1.0857362047581294
 # Kernel launches since the last reset; the wrappers add one per launch.
 table_fwd_launches = 0
 table_bwd_launches = 0
+
+# Pad beyond the ends of the base mass axis: flat extrapolation outside it.
+AXIS_HUGE = 1.0e30
+# Window bounds: at most this many doubling steps of the probe, the first
+# 2^-23 of (|edge| + ramp width).
+_PROBE_STEPS = 64
+_PROBE_SCALE = 2.0 ** -23
+
+
+def base_axis_columns(x):
+    """The four base-axis columns [C, E2, 1] of a sorted mass axis x
+    [C, E2]: left / right neighbours (padded by AXIS_HUGE at the ends) and
+    the inverse spacings, 1e30 across a tie."""
+    xl = torch.cat([x[:, :1] - AXIS_HUGE, x[:, :-1]], dim=1)[:, :, None]
+    xr = torch.cat([x[:, 1:], x[:, -1:] + AXIS_HUGE], dim=1)[:, :, None]
+    inv_dl = 1.0 / (x[:, :, None] - xl).clamp_min(1e-30)
+    inv_dr = 1.0 / (xr - x[:, :, None]).clamp_min(1e-30)
+    return xl, inv_dl, xr, inv_dr
+
+
+def _probe(edge, ramp, inv, sign):
+    """Step c from `edge` in direction `sign`, doubling the step, until
+    ramp(c) >= 1; -+inf where that takes more than _PROBE_STEPS steps.  The
+    float32 operations are those of csrc/table.cu `probe`."""
+    c = edge.clone()
+    d = (c.abs() + 1.0 / inv) * _PROBE_SCALE
+    for _ in range(_PROBE_STEPS):
+        need = ~(ramp(c) >= 1.0)
+        if not need.any():
+            break
+        c = torch.where(need, c + sign * d, c)
+        d = torch.where(need, d + d, d)
+    return torch.where(ramp(c) >= 1.0, c, torch.full_like(c, sign * torch.inf))
+
+
+def hat_zero_bounds(xl, inv_dl, xr, inv_dr):
+    """Kernel 2's window rule, part 1: per axis entry e, bounds (lz, rz)
+    [C, E2] such that for every float32 query q <= lz[e] or q >= rz[e] the
+    entry's weight and both factors 6u(1-u) are exactly 0.0.
+
+    With up = clamp01((q - xl) idl) and dn = clamp01((xr - q) idr), idl and
+    idr > 0: q <= xl gives up == 0, and dn is non-increasing in q, so once
+    dn(c) >= 1 every q <= c has dn == 1; then w = S(0) + S(1) - 1 and both
+    factors are exact zeros.  The probe finds such a c <= xl starting at xl,
+    so lz = c is xl itself unless float rounding (at a tie, or next to a
+    wide gap) needs a step; rz mirrors it from xr.  An entry with a
+    non-positive or NaN inverse spacing is never skipped.  lz is then made
+    non-decreasing (suffix minimum) and rz non-decreasing (prefix maximum):
+    that only widens the windows, and makes each one a run of entries."""
+    xl, idl, xr, idr = (t[..., 0] for t in (xl, inv_dl, xr, inv_dr))
+    c_lo = _probe(xl, lambda c: (xr - c) * idr, idr, -1.0)
+    c_hi = _probe(xr, lambda c: (c - xl) * idl, idl, 1.0)
+    ok = (idl > 0) & (idr > 0)
+    lz = torch.where(ok, c_lo, -torch.inf)
+    rz = torch.where(ok, c_hi, torch.inf)
+    lz = torch.flip(torch.cummin(torch.flip(lz, [1]), 1).values, [1])
+    rz = torch.cummax(rz, 1).values
+    return lz, rz
+
+
+def hat_window(m2N, lz, rz):
+    """Kernel 2's window rule, part 2: the axis entries lo..hi ([C, N]
+    each, inclusive, empty when lo > hi) that node queries m2N [C, 1, N] can
+    touch, i.e. lz < q < rz, by binary search on the monotone bounds.  A
+    NaN query takes the whole axis."""
+    q = m2N[:, 0, :].contiguous()
+    lo = torch.searchsorted(rz.contiguous(), q, right=True)
+    hi = torch.searchsorted(lz.contiguous(), q, right=False) - 1
+    nan = torch.isnan(q)
+    lo = torch.where(nan, torch.zeros_like(lo), lo)
+    hi = torch.where(nan, torch.full_like(hi, lz.shape[1] - 1), hi)
+    return lo, hi
 
 
 def _weights(m2, xl, inv_dl, xr, inv_dr):
@@ -109,7 +185,8 @@ def table_bwd_cuda(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr, g):
         build.check(name, t, shape)
     build.check("g", g, shapes[0])
     outs = [torch.empty_like(t) for t in args]           # dapp1 .. dinv_dr
-    scratch = torch.empty_like(app1N)                    # d mags2 per node
+    scratch = torch.empty(build.table_bwd_scratch(*sizes),  # tile partials
+                          dtype=torch.float32, device=app1N.device)
     build.launch("btt_table_bwd", [*args, g, *outs, scratch], sizes)
     table_bwd_launches += 1
     return tuple(outs)

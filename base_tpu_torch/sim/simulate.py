@@ -13,8 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from base_tpu import constants as C
-from base_tpu.grids import filters as filt
+from base_tpu_torch import constants as C
+from base_tpu_torch.grids import filters as filt
 from base_tpu_torch.grids.isochrone import IsochroneGrid, derive_isochrone
 from base_tpu_torch.model.likelihood import companion_lit_weight
 from base_tpu_torch.ops.table import LN10_04

@@ -18,16 +18,29 @@ chains with step-size jitter and l_max 48.  Phases:
    plain path on the CPU, and two card runs compared bit for bit;
 4. HMC through make_hmc_chunked_runner, with every kernel's launch count
    taken over this phase alone;
-5. each kernel's time against its plain version (CUDA events).
+5. each kernel's time against its plain version (CUDA events) at both
+   shapes, beside its bound: the larger of the operations it needs over the
+   card's FP32 peak and the bytes it must move over the HBM rate, counted
+   from this run's inputs by the formulas in `kernel_work`;
+6. one torch.profiler pass over a few density + gradient calls at each
+   shape: the device's busy share and each kernel's share of device time.
 
 The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
 that the per-kernel JSON.  Without a CUDA device it exits non-zero before
 printing any result.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --times-only [--root DIR]
+
+runs phases 1 and 5 alone and prints the per-kernel JSON; with --root it
+times the base_tpu_torch found under DIR (another checkout), so that two
+versions can be compared on one card in one call.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,6 +80,18 @@ KERNELS = {
     "marglik_bwd": ("base_tpu_torch/csrc/marglik.cu",
                     "base_tpu/ops/pallas_marglik.py:217"),
 }
+# Device function names of each kernel in a profiler trace (kernel 2 was
+# one `table_bwd_kernel` before its redesign; --root may time that form).
+KERNEL_SYMBOLS = {
+    "table_fwd": ("table_fwd_kernel",),
+    "table_bwd": ("table_bwd_kernel", "table_bwd_node_kernel",
+                  "table_bwd_axis_kernel"),
+    "marglik_fwd": ("marglik_fwd_kernel",),
+    "marglik_bwd": ("marglik_bwd_kernel",),
+}
+# Published H100 SXM peaks (dense FP32 outside the tensor cores, HBM3).
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -327,13 +352,45 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel, plain) -> tuple[float, float]:
-    """(kernel ms, plain ms), measured plain, kernel, kernel, plain."""
+def _dev_us(event) -> float:
+    """Device time (us) of a profiler key-average entry."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def _kernel_events(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, symbols, reps: int = 20) -> float | None:
+    """The kernel's own time on the card per call (ms): torch.profiler's
+    mean device time per launch of each kernel named in `symbols`, summed
+    over them.  None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) / e.count for e in _kernel_events(prof)
+             if e.count and any(sym in e.key for sym in symbols))
+    return us / 1e3 if us > 0 else None
+
+
+def time_pair(name, kernel, plain) -> tuple[float, float, float | None]:
+    """(kernel ms, plain ms, kernel device ms): CUDA events over 20 calls,
+    in the order plain, kernel, kernel, plain; then the profiler's device
+    time of the kernel alone."""
     p1 = cuda_ms(plain)
     k1 = cuda_ms(kernel)
     k2 = cuda_ms(kernel)
     p2 = cuda_ms(plain)
-    return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    return (0.5 * (k1 + k2), 0.5 * (p1 + p2),
+            device_ms(kernel, KERNEL_SYMBOLS[name]))
 
 
 def time_kernels(model, z) -> dict:
@@ -346,48 +403,214 @@ def time_kernels(model, z) -> dict:
     out = ml.marglik_fwd_plain(*marg_in)
     gs = torch.ones_like(out)
     return {
-        "table_fwd": time_pair(lambda: tb.table_fwd_cuda(*table_in),
+        "table_fwd": time_pair("table_fwd",
+                               lambda: tb.table_fwd_cuda(*table_in),
                                lambda: tb.table_fwd_plain(*table_in)),
-        "table_bwd": time_pair(lambda: tb.table_bwd_cuda(*table_in, g),
+        "table_bwd": time_pair("table_bwd",
+                               lambda: tb.table_bwd_cuda(*table_in, g),
                                lambda: tb.table_bwd_plain(*table_in, g)),
-        "marglik_fwd": time_pair(lambda: ml.marglik_fwd_cuda(*marg_in),
+        "marglik_fwd": time_pair("marglik_fwd",
+                                 lambda: ml.marglik_fwd_cuda(*marg_in),
                                  lambda: ml.marglik_fwd_plain(*marg_in)),
         "marglik_bwd": time_pair(
+            "marglik_bwd",
             lambda: ml.marglik_bwd_cuda(*marg_in, out, gs),
             lambda: ml.marglik_bwd_plain(*marg_in, out, gs)),
     }
 
 
-def main() -> None:
+def kernel_work(model, z) -> dict:
+    """{kernel: (flops, bytes)} that each kernel needs on the main path's
+    inputs at points z.  Bytes: each input read once, each output written
+    once (float32; scratch not counted).  Flops are counted by hand from
+    csrc/ (an FMA is 2, a transcendental or a division 1) and, where the
+    work depends on the data, over what these inputs need: the table
+    kernels over the (node, axis entry) pairs with a non-zero hat weight or
+    factor, the marginal kernels over the unmasked segments."""
+    from base_tpu_torch.ops import table as tb
+
+    table_in, marg_in = kernel_inputs(model, z)
+    app1, m2, _, secT = table_in[:4]
+    C, B, N = app1.shape
+    E2 = secT.shape[2]
+    w, up, dn = tb._weights(m2, *table_in[4:])
+    nnz = int(((w != 0) | (up * (1 - up) != 0) | (dn * (1 - dn) != 0))
+              .sum())
+    S = marg_in[0].shape[0]
+    T = marg_in[3].shape[1]
+    live = S * int((marg_in[6] > 0.5).sum())        # (chain, star, segment)
+    f = 4                                           # bytes per float
+    table_io = f * (C * B * N + 2 * C * N + C * B * E2 + 4 * C * E2)
+    marg_in_bytes = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
+    return {
+        # Per non-zero entry: 2 ramps + 2 smoothsteps + weight (18), B FMAs;
+        # per (node, band): 2 exp, the flux sum, log (8).
+        "table_fwd": (nnz * (18 + 2 * B) + 8 * C * B * N,
+                      table_io + f * C * B * N),
+        # Per non-zero entry: the weight and mags2 again (18 + 2B), dm2
+        # (22 + 2B), the node sums (38 + 4B); per (node, band) 15.
+        "table_bwd": (nnz * (78 + 8 * B) + 15 * C * B * N,
+                      table_io + f * C * B * N + table_io),
+        # Per live element: band contraction 11B, core_width and
+        # phi_interval_scaled ~100, online update 5.
+        "marglik_fwd": (live * (11 * B + 105), marg_in_bytes + f * C * S),
+        # Per live element: the forward's 11B + 100, moments and softmax
+        # weight ~38, the cotangents 14B.
+        "marglik_bwd": (live * (25 * B + 138),
+                        marg_in_bytes + f * 2 * C * S
+                        + f * (2 * C * T * B + C * T)),
+    }
+
+
+def bound(flops: int, nbytes: int) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops = flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def density_fn(model):
+    """log_post + gradient of the model's chains at unconstrained points."""
+    from base_tpu_torch.inference.hmc import value_and_grad
+    from base_tpu_torch.model import posterior as post
+
+    return value_and_grad(post.make_logpost_z_fn(
+        model, post.default_transform(model)))
+
+
+def device_shares(model, z, label: str, wall_ms: float,
+                  calls: int = 5) -> dict:
+    """One torch.profiler pass over `calls` density + gradient calls:
+    device time per call over `wall_ms` (the call's time without the
+    profiler, CUDA events) as the device's busy share, and each kernel's
+    share of device time.  Empty when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vg = density_fn(model)
+    for _ in range(2):
+        vg(z)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            vg(z)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = _kernel_events(prof)
+    busy = sum(_dev_us(e) for e in kernels)
+    if busy <= 0:
+        log(f"  [{label}] profiler saw no device time: shares not measured")
+        return {}
+    res = dict(
+        label=label,
+        wall_ms_per_call=wall_ms,
+        wall_ms_per_call_profiled=wall_us / calls / 1e3,
+        device_ms_per_call=busy / calls / 1e3,
+        busy_share=busy / calls / 1e3 / wall_ms,
+        device_kernels_per_call=sum(e.count for e in kernels) / calls,
+        kernel_share={
+            name: sum(_dev_us(e) for e in kernels
+                      if any(sym in e.key for sym in syms)) / busy
+            for name, syms in KERNEL_SYMBOLS.items()},
+    )
+    log("  device shares " + json.dumps(res))
+    return res
+
+
+def density_walls(models: dict, z) -> dict:
+    """{label: ms per log_post + gradient call} (CUDA events)."""
+    walls = {}
+    for label, model in models.items():
+        vg = density_fn(model)
+        walls[label] = cuda_ms(lambda: vg(z))
+        log(f"  log_post + gradient [{label}], {N_CHAINS} chains: "
+            f"{walls[label]:.3f} ms")
+    return walls
+
+
+def kernel_report(model, model_up4, z) -> dict:
+    """Phase 5: {kernel: times at both shapes, bound, bound_by, share}."""
+    times = time_kernels(model, z)
+    times_up4 = time_kernels(model_up4, z)
+    work = kernel_work(model, z)
+    work_up4 = kernel_work(model_up4, z)
+    report = {}
+    for name in KERNELS:
+        ms, plain_ms, dev = times[name]
+        ms4, plain_ms4, dev4 = times_up4[name]
+        bound_ms, bound_by = bound(*work[name])
+        bound_up4, by_up4 = bound(*work_up4[name])
+        # Share of bound: over the kernel's own device time where the
+        # profiler gives it (back-to-back calls of a short kernel measure
+        # the host's dispatch), else over the event time.
+        share = bound_ms / (dev or ms)
+        share4 = bound_up4 / (dev4 or ms4)
+        report[name] = dict(
+            ms=ms, plain_ms=plain_ms, device_ms=dev, flops=work[name][0],
+            bytes=work[name][1], bound_ms=bound_ms, bound_by=bound_by,
+            roofline_share=share, ms_up4=ms4, plain_ms_up4=plain_ms4,
+            device_ms_up4=dev4, bound_ms_up4=bound_up4, bound_by_up4=by_up4,
+            roofline_share_up4=share4)
+        log(f"  {name}: kernel {ms:.4f} ms, device {dev} ms (upsample 4: "
+            f"{ms4:.4f}, device {dev4}); plain {plain_ms:.4f} ms "
+            f"({plain_ms4:.4f}); bound {bound_ms:.5f} ms by {bound_by} "
+            f"({bound_up4:.5f} by {by_up4}); share of bound {share:.4f} "
+            f"({share4:.4f})")
+    return report
+
+
+def setup(root: str | None):
+    """Phase 1: device, toolchain, kernel build; the config-1 models at
+    the bench and upsample-4 shapes and the phase-2 chain points."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA device")
+    if root is not None:
+        sys.path.insert(0, root)
     from base_tpu_torch.ops import build
 
-    # 1. Device, toolchain, kernel build.
     smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
     log(f"nvidia-smi: {smi}")
-    log(f"device: {kind}; torch {torch.__version__}; CUDA "
-        f"{torch.version.cuda}; python {sys.version.split()[0]}")
+    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__};"
+        f" CUDA {torch.version.cuda}; python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build.library()
     log(f"kernel build + load: {time.perf_counter() - t0:.3f} s "
-        f"({build.library_path().name})")
+        f"({build.library_path()})")
     ptxas = build.library_path().with_suffix(".log")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
             if "Used" in line or "Compiling entry" in line:
                 log("  " + line.strip())
-
     dev = torch.device("cuda", 0)
     data = make_data()
     model = make_model(data, dev)
     model_up4 = make_model(data, dev, upsample=4)
+    return data, model, model_up4, chain_points(model, 0.05, seed=1)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--times-only", action="store_true",
+                    help="phases 1 and 5 only: build and time the kernels")
+    ap.add_argument("--root", default=None,
+                    help="time the base_tpu_torch of this checkout instead")
+    args = ap.parse_args()
+    data, model, model_up4, z = setup(args.root)
+    models = {"bench": model, "upsample 4": model_up4}
+
+    if args.times_only:
+        log("phase 5: kernel times (CUDA events) and bounds")
+        report = kernel_report(model, model_up4, z)
+        density_walls(models, z)
+        print(json.dumps({"kernels": report}))
+        return
 
     # 2. Kernels vs their plain versions, bench and upsample-4 shapes.
     log("phase 2: kernels vs plain on the card")
-    z = chain_points(model, 0.05, seed=1)
     errs = check_kernels(model, z, "bench")
     errs_up4 = check_kernels(model_up4, z, "upsample 4")
     worst = {k: max(errs[k], errs_up4[k]) for k in errs}
@@ -400,30 +623,33 @@ def main() -> None:
     log("phase 4: chunked HMC, 64 chains, dense metric, l_max 48")
     hmc_res = run_hmc(model)
 
-    # 5. Kernel times vs plain at the bench shapes.
-    log("phase 5: times at the bench shapes (CUDA events)")
-    times = time_kernels(model, z)
-    from base_tpu_torch.inference.hmc import value_and_grad
-    from base_tpu_torch.model import posterior as post
+    # 5. Kernel times vs plain and vs their bounds, at both shapes.
+    log("phase 5: kernel times (CUDA events) and bounds")
+    report = kernel_report(model, model_up4, z)
+    walls = density_walls(models, z)
 
-    vg = value_and_grad(post.make_logpost_z_fn(model,
-                                               post.default_transform(model)))
-    density_ms = cuda_ms(lambda: vg(z))
-    log(f"  log_post + gradient, {N_CHAINS} chains: {density_ms:.3f} ms")
+    # 6. Device busy share and kernel shares of device time.
+    log("phase 6: torch.profiler, density + gradient")
+    for label, m in models.items():
+        device_shares(m, z, label, walls[label])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = times[name]
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=hmc_res["launches"][name],
-                            max_abs_err=worst[name], ms=ms,
-                            plain_ms=plain_ms))
+        r = report[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=hmc_res["launches"][name], max_abs_err=worst[name],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            roofline_share=r["roofline_share"], ms_up4=r["ms_up4"],
+            device_ms=r["device_ms"], device_ms_up4=r["device_ms_up4"]))
+        if not all(math.isfinite(kernels[-1][k]) for k in
+                   ("ms", "plain_ms", "bound_ms", "ms_up4")):
+            raise AssertionError(f"{name}: a time is not finite")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

@@ -1,7 +1,7 @@
 """The four CUDA kernels against their plain versions, on the card.  A
 CUDA kernel has no interpret mode, so these tests are marked `gpu` and
 skip without a CUDA device; run them on the card with
-`python -m pytest tests/test_torch_cuda.py -q -m gpu`."""
+`python -m pytest tests/test_torch_cuda.py -q -m gpu --noconftest`."""
 import numpy as np
 import pytest
 import torch
@@ -33,25 +33,32 @@ def _marglik_inputs(dev, C=3, S=37, T=133, B=8, seed=0):
                  for a in (obs, iv, ln, lo, hi, logw, mask))
 
 
-def _table_inputs(dev, C=3, B=6, E=17, Q=5, E2=24, seed=1):
+def _table_inputs(dev, C=3, B=6, E=17, Q=5, E2=24, seed=1, ties=False):
+    """Random node-table inputs; with `ties`, the base axis repeats masses
+    (a pair and a triple) and some nodes sit exactly on axis masses."""
     rng = np.random.default_rng(seed)
     N = E * Q
-    x = np.sort(rng.uniform(0.15, 1.5, (C, E2)), axis=1)
-    xl = np.concatenate([x[:, :1] - 1e30, x[:, :-1]], 1)[..., None]
-    xr = np.concatenate([x[:, 1:], x[:, -1:] + 1e30], 1)[..., None]
+    x = np.sort(rng.uniform(0.15, 1.5, (C, E2)), axis=1).astype(np.float32)
+    m2 = rng.uniform(0.0, 1.6, (C, 1, N)).astype(np.float32)
+    if ties:
+        x[:, 5] = x[:, 4]
+        x[:, 11:14] = x[:, 10:11]
+        m2[:, 0, : E2 // 2] = x[:, ::2]
+    cols = tb.base_axis_columns(torch.as_tensor(x))
     arrays = (
         rng.normal(15, 2, (C, B, N)),                       # app1N
-        rng.uniform(0.0, 1.6, (C, 1, N)),                   # m2N
+        m2,
         rng.uniform(0.0, 1.0, (C, 1, N)),                   # litN
         rng.normal(16, 2, (C, B, E2)),                      # secT
-        xl, 1.0 / (x[..., None] - xl), xr, 1.0 / (xr - x[..., None]),
+        *(c.numpy() for c in cols),                         # xl .. inv_dr
     )
     return tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
                  for a in arrays)
 
 
-def test_table_kernels_match_plain(cuda):
-    args = _table_inputs(cuda)
+@pytest.mark.parametrize("ties", [False, True])
+def test_table_kernels_match_plain(cuda, ties):
+    args = _table_inputs(cuda, ties=ties)
     torch.testing.assert_close(tb.table_fwd_cuda(*args),
                                tb.table_fwd_plain(*args), rtol=0, atol=1e-4)
     g = torch.randn(args[0].shape, device=cuda)
@@ -62,8 +69,10 @@ def test_table_kernels_match_plain(cuda):
                                    atol=1e-3)
 
 
-def test_marglik_kernels_match_plain(cuda):
-    args = _marglik_inputs(cuda)
+@pytest.mark.parametrize("T", [133, 1500])
+def test_marglik_kernels_match_plain(cuda, T):
+    """T = 1500 spans several of the forward kernel's staged tiles."""
+    args = _marglik_inputs(cuda, T=T)
     want = ml.marglik_fwd_plain(*args)
     got = ml.marglik_fwd_cuda(*args)
     sel = want > -200
@@ -77,15 +86,25 @@ def test_marglik_kernels_match_plain(cuda):
 
 def test_kernels_deterministic_and_counted(cuda):
     """Same inputs give bit-identical outputs (fixed-order sums, no
-    atomics), and each wrapper counts its launches."""
-    args = _marglik_inputs(cuda)
-    before = ml.marglik_bwd_launches
+    atomics), and each wrapper counts one launch per call."""
+    args = _marglik_inputs(cuda, T=1500)
+    before = ml.marglik_fwd_launches, ml.marglik_bwd_launches
     out = ml.marglik_fwd_cuda(*args)
+    assert torch.equal(out, ml.marglik_fwd_cuda(*args))
     g = torch.ones_like(out)
     first = ml.marglik_bwd_cuda(*args, out, g)
     second = ml.marglik_bwd_cuda(*args, out, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
-    assert ml.marglik_bwd_launches == before + 2
+    assert (ml.marglik_fwd_launches, ml.marglik_bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+
+    targs = _table_inputs(cuda, ties=True)
+    before = tb.table_bwd_launches
+    gt = torch.randn(targs[0].shape, device=cuda)
+    first = tb.table_bwd_cuda(*targs, gt)
+    second = tb.table_bwd_cuda(*targs, gt)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert tb.table_bwd_launches == before + 2
 
 
 def test_wrappers_refuse_bad_inputs(cuda):
