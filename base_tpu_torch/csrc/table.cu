@@ -14,22 +14,28 @@
 // weights, does a few MFLOP, so the bound is HBM bandwidth at ~1 us; what
 // holds them back is latency and how many SMs they fill.
 //
-// Kernel 1 (unchanged since the first port): the chain's secondary table and
-// base axis, (B + 4) * E2 floats, are staged once per block in shared memory
-// and every thread owns one node and runs the dense E2 loop.
+// Sparse weights, in both kernels.  A node's weight on axis entry e and
+// the factors 6u(1-u) that carry the axis gradients are exactly zero unless
+// the node lies in the entry's support.  The rule is ops/table.py
+// `hat_zero_bounds` and `hat_window` (held to the dense weights on config-1
+// and adversarial axes by tests/test_torch_kernels_plain.py): per entry,
+// bounds lz < rz outside which every term is an exact 0.0 in float32 --
+// found by `probe`, the same float32 operations as the Python rule -- made
+// monotone by a suffix minimum / prefix maximum, so a node's entries are the
+// one run lo..hi found by two binary searches.  On config-1 axes that run is
+// at most 3 of 64 entries.  Skipped terms are exact zeros, so the per-node
+// outputs equal the dense loop's, e in order.  Each block stages the
+// chain's table and axis and computes the bounds once.
+//
+// Kernel 1, redesigned for Hopper: `stage_windows`, then one thread per
+// node over its window (`window_mags`) and the flux combine; grid (node
+// tiles of FWD_NODES, chains), 128 blocks at config-1 and 512 at upsample
+// 4, one wave.  With the dense E2 loop gone, the block's prologue (staging,
+// probes, scans) and launch latency set its time.  (Kernel 2's node pass
+// does the same steps written out in its body: calling these two helpers
+// there made it half again as slow on the H100, PERF.md.)
 //
 // Kernel 2, redesigned for Hopper, two launches behind one entry point:
-// - Sparse weights.  A node's weight on axis entry e and the factors
-//   6u(1-u) that carry the axis gradients are exactly zero unless the node
-//   lies in the entry's support.  The rule is ops/table.py `hat_zero_bounds`
-//   and `hat_window` (held to the dense weights on config-1 and adversarial
-//   axes by tests/test_torch_kernels_plain.py): per entry, bounds lz < rz
-//   outside which every term is an exact 0.0 in float32 -- found by `probe`,
-//   the same float32 operations as the Python rule -- made monotone by a
-//   suffix minimum / prefix maximum, so a node's entries are the one run
-//   lo..hi found by two binary searches.  On config-1 axes that run is at
-//   most 3 of 64 entries.  Skipped terms are exact zeros, so the per-node
-//   outputs (dapp1, dlit, dm2) equal the dense loop's, e in order.
 // - More than C blocks.  Pass 1 runs on a grid (node tiles of BWD_NODES,
 //   chains): one thread per node computes dapp1, dlit, dm2 and keeps d mags2,
 //   q and its window in shared memory; then the block sums its nodes'
@@ -44,7 +50,9 @@ namespace {
 
 constexpr float LN10_04 = 0.9210340371976184f;
 constexpr float INV_LN10_04 = 1.0857362047581294f;
-constexpr int FWD_THREADS = 128;
+constexpr int FWD_NODES = 256;   // nodes (threads) per kernel-1 block
+constexpr int BWD_NODES = 128;   // nodes (threads) per kernel-2 pass-1 block
+constexpr int AXIS_THREADS = 256;
 
 __device__ __forceinline__ float smoothstep(float u) {
   return u * u * (3.0f - 2.0f * u);
@@ -66,65 +74,9 @@ __device__ void stage_axis(float* sh, const float* secT, const float* xl,
   }
 }
 
-// mags2[b] = sum_e secT[b, e] * W[e](q), e in order.
-__device__ __forceinline__ void secondary_mags(const float* s_sec,
-                                               const float* s_ax, float q,
-                                               int B, int E2,
-                                               float (&acc)[btt::MAX_B]) {
-  const float* s_xl = s_ax;
-  const float* s_idl = s_ax + E2;
-  const float* s_xr = s_ax + 2 * E2;
-  const float* s_idr = s_ax + 3 * E2;
-#pragma unroll
-  for (int b = 0; b < btt::MAX_B; ++b) acc[b] = 0.0f;
-  for (int e = 0; e < E2; ++e) {
-    const float up = btt::clamp01((q - s_xl[e]) * s_idl[e]);
-    const float dn = btt::clamp01((s_xr[e] - q) * s_idr[e]);
-    const float w = smoothstep(up) + smoothstep(dn) - 1.0f;
-#pragma unroll
-    for (int b = 0; b < btt::MAX_B; ++b)
-      if (b < B) acc[b] += s_sec[b * E2 + e] * w;
-  }
-}
-
-__global__ void table_fwd_kernel(const float* __restrict__ app1,
-                                 const float* __restrict__ m2,
-                                 const float* __restrict__ lit,
-                                 const float* __restrict__ secT,
-                                 const float* __restrict__ xl,
-                                 const float* __restrict__ idl,
-                                 const float* __restrict__ xr,
-                                 const float* __restrict__ idr,
-                                 float* __restrict__ out, int B, int N,
-                                 int E2) {
-  extern __shared__ float sh[];
-  const int c = blockIdx.y;
-  stage_axis(sh, secT, xl, idl, xr, idr, c, B, E2);
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const size_t node = static_cast<size_t>(c) * N + n;
-  float mags2[btt::MAX_B];
-  secondary_mags(sh, sh + B * E2, m2[node], B, E2, mags2);
-  const float l = lit[node];
-#pragma unroll
-  for (int b = 0; b < btt::MAX_B; ++b) {
-    if (b < B) {
-      const size_t o = (static_cast<size_t>(c) * B + b) * N + n;
-      const float f1 = expf(-LN10_04 * app1[o]);
-      const float f2 = l * expf(-LN10_04 * mags2[b]);
-      out[o] = -INV_LN10_04 * logf(f1 + f2);
-    }
-  }
-}
-
-// --- Kernel 2 -------------------------------------------------------------
-
 // The window rule of ops/table.py: probe steps and first-step scale 2^-23.
 constexpr int PROBE_STEPS = 64;
 constexpr float PROBE_SCALE = 1.1920928955078125e-7f;
-constexpr int BWD_NODES = 128;   // nodes (threads) per pass-1 block
-constexpr int AXIS_THREADS = 256;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // ops/table.py `_probe`: from the entry's left edge xl (kLeft) step down
@@ -194,6 +146,107 @@ __device__ __forceinline__ void hat(float q, float xl, float idl, float xr,
   *up = btt::clamp01((q - xl) * idl);
   *dn = btt::clamp01((xr - q) * idr);
 }
+
+// Stage the chain's table and axis (stage_axis), then the window bounds lz,
+// rz [E2] behind them: `probe` per entry, made monotone.  Shared layout
+// [secT B*E2 | xl, idl, xr, idr | lz | rz], (B + 6) * E2 floats.  Needs at
+// least 64 threads (monotone_bounds).
+__device__ void stage_windows(float* sh, const float* secT, const float* xl,
+                              const float* idl, const float* xr,
+                              const float* idr, int c, int B, int E2) {
+  stage_axis(sh, secT, xl, idl, xr, idr, c, B, E2);
+  const float* s_xl = sh + B * E2;
+  const float* s_idl = s_xl + E2;
+  const float* s_xr = s_xl + 2 * E2;
+  const float* s_idr = s_xl + 3 * E2;
+  float* s_lz = sh + (B + 4) * E2;
+  float* s_rz = s_lz + E2;
+  __syncthreads();
+  for (int e = threadIdx.x; e < E2; e += blockDim.x) {
+    const bool ok = s_idl[e] > 0.0f && s_idr[e] > 0.0f;
+    s_lz[e] = ok ? probe<true>(s_xl[e], s_idl[e], s_xr[e], s_idr[e])
+                 : -INFINITY;
+    s_rz[e] = ok ? probe<false>(s_xl[e], s_idl[e], s_xr[e], s_idr[e])
+                 : INFINITY;
+  }
+  __syncthreads();
+  monotone_bounds(s_lz, s_rz, E2);
+  __syncthreads();
+}
+
+size_t window_smem(int B, int E2) {
+  return static_cast<size_t>(B + 6) * E2 * sizeof(float);
+}
+
+// The node's window lo..hi (ops/table.py `hat_window`: two binary searches;
+// a NaN query takes the whole axis) and mags2[b] = sum_e secT[b, e] W[e](q)
+// over it, e in order.  Entries outside it add s_sec * 0.0, so mags2 is the
+// dense loop's to the bit.
+__device__ __forceinline__ void window_mags(const float* sh, float q, int B,
+                                            int E2,
+                                            float (&mags2)[btt::MAX_B]) {
+  const float* s_xl = sh + B * E2;
+  const float* s_idl = s_xl + E2;
+  const float* s_xr = s_xl + 2 * E2;
+  const float* s_idr = s_xl + 3 * E2;
+  const float* s_lz = sh + (B + 4) * E2;
+  const float* s_rz = s_lz + E2;
+  const int lo = isnan(q) ? 0 : count_below<true>(s_rz, E2, q);
+  const int hi = isnan(q) ? E2 - 1 : count_below<false>(s_lz, E2, q) - 1;
+#pragma unroll
+  for (int b = 0; b < btt::MAX_B; ++b) mags2[b] = 0.0f;
+  for (int e = lo; e <= hi; ++e) {
+    float up, dn;
+    hat(q, s_xl[e], s_idl[e], s_xr[e], s_idr[e], &up, &dn);
+    const float w = smoothstep(up) + smoothstep(dn) - 1.0f;
+#pragma unroll
+    for (int b = 0; b < btt::MAX_B; ++b)
+      if (b < B) mags2[b] += sh[b * E2 + e] * w;
+  }
+}
+
+// A launch that needs more than 48 KB of shared memory has to ask first.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// --- Kernel 1 -------------------------------------------------------------
+
+__global__ void table_fwd_kernel(const float* __restrict__ app1,
+                                 const float* __restrict__ m2,
+                                 const float* __restrict__ lit,
+                                 const float* __restrict__ secT,
+                                 const float* __restrict__ xl,
+                                 const float* __restrict__ idl,
+                                 const float* __restrict__ xr,
+                                 const float* __restrict__ idr,
+                                 float* __restrict__ out, int B, int N,
+                                 int E2) {
+  extern __shared__ float sh[];
+  const int c = blockIdx.y;
+  stage_windows(sh, secT, xl, idl, xr, idr, c, B, E2);
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const size_t node = static_cast<size_t>(c) * N + n;
+  float mags2[btt::MAX_B];
+  window_mags(sh, m2[node], B, E2, mags2);
+  const float l = lit[node];
+#pragma unroll
+  for (int b = 0; b < btt::MAX_B; ++b) {
+    if (b < B) {
+      const size_t o = (static_cast<size_t>(c) * B + b) * N + n;
+      const float f1 = expf(-LN10_04 * app1[o]);
+      const float f2 = l * expf(-LN10_04 * mags2[b]);
+      out[o] = -INV_LN10_04 * logf(f1 + f2);
+    }
+  }
+}
+
+// --- Kernel 2 -------------------------------------------------------------
 
 // Node groups that share the partial sums of one axis entry in pass 1.
 __host__ __device__ __forceinline__ int node_groups(int E2) {
@@ -397,10 +450,6 @@ __global__ void table_bwd_axis_kernel(const float* __restrict__ part,
   }
 }
 
-size_t axis_smem(int B, int E2) {
-  return static_cast<size_t>(B + 4) * E2 * sizeof(float);
-}
-
 }  // namespace
 
 extern "C" int btt_table_fwd(const float* app1, const float* m2,
@@ -410,8 +459,11 @@ extern "C" int btt_table_fwd(const float* app1, const float* m2,
                              int C, int B, int N, int E2, int device,
                              void* stream) {
   cudaSetDevice(device);
-  dim3 grid((N + FWD_THREADS - 1) / FWD_THREADS, C);
-  table_fwd_kernel<<<grid, FWD_THREADS, axis_smem(B, E2),
+  const size_t smem = window_smem(B, E2);
+  const int err = allow_smem(table_fwd_kernel, smem);
+  if (err != 0) return err;
+  dim3 grid((N + FWD_NODES - 1) / FWD_NODES, C);
+  table_fwd_kernel<<<grid, FWD_NODES, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       app1, m2, lit, secT, xl, idl, xr, idr, out, B, N, E2);
   return static_cast<int>(cudaGetLastError());  // launch status
@@ -435,12 +487,8 @@ extern "C" int btt_table_bwd(const float* app1, const float* m2,
   const auto st = static_cast<cudaStream_t>(stream);
   const int tiles = (N + BWD_NODES - 1) / BWD_NODES;
   const size_t smem = bwd_node_smem(B, E2);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        table_bwd_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int serr = allow_smem(table_bwd_node_kernel, smem);
+  if (serr != 0) return serr;
   table_bwd_node_kernel<<<dim3(tiles, C), BWD_NODES, smem, st>>>(
       app1, m2, lit, secT, xl, idl, xr, idr, g, dapp1, dm2, dlit, part, B, N,
       E2);

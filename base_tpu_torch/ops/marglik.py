@@ -14,6 +14,11 @@ base_tpu: softmax weights from the saved output and d log I / d(alpha,
 beta, gamma) = (-<t^2>/2, <t>, -1/2) from the [0,1]-truncated Gaussian
 moments (`marglik_bwd_plain` beside kernel 4).  The photometry is data and
 gets no cotangent; d out / d log_norm is the identity.
+
+Almost every softmax weight is an exact 0.0 in float32 (98% at config-1):
+`marglik_bwd_group_skip` (before any band contraction, for 32 segments at
+once) and `marglik_bwd_skip` (after it, per element) are the rules by which
+kernel 4 finds them and skips the rest of their work.
 """
 from __future__ import annotations
 
@@ -121,6 +126,98 @@ def marglik_bwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask, out, g):
     dlo = (iv * (-2.0 * ga * d - gb * (d + r) - 2.0 * gc * r)).sum(1)
     dhi = (iv * (2.0 * ga * d + gb * r)).sum(1)
     return dlo, dhi, gw.sum(1)
+
+
+# Kernel 4's skip rule: expf of anything below about -104 is 0.0f.
+_SKIP_BELOW = -105.0
+# At least log of the largest width, sqrt(2 pi / _FLAT_EPS) ~ e^8.4 (the
+# scaled Phi-difference is at most ~1), with room to spare.
+_SKIP_LOG_WIDTH = 16.0
+# Float32 rounding of chi2c here and of resid + unear_sq in core_width,
+# relative to the magnitudes that cancel in them.
+_SKIP_REL = 1e-5
+
+
+def marglik_bwd_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
+    """Kernel 4's skip rule: bool [C, S, T], True where the softmax weight
+    exp(core - out') * width of marglik_bwd_plain is certain to be an exact
+    0.0, so that the element adds nothing to dlo, dhi or dlogw.
+
+    chi2c = (alpha u - 2 beta) u + gamma at u = clamp(beta / alpha, 0, 1) is
+    the on-segment minimum of chi2: resid + unear_sq on the live branch, at
+    most `mid` on the flat one.  So core <= -chi2c / 2 + logw, up to the
+    rounding that _SKIP_REL covers, and log width <= _SKIP_LOG_WIDTH.  An
+    element is skipped when that bound on log(weight) lies below
+    _SKIP_BELOW.  Masked segments (already zero) are never marked, nor is a
+    NaN bound, and out' = NEG_INF (a star with no live segment) gives a
+    huge bound.  csrc/marglik.cu follows these float32 operations in this
+    order, without FMA contraction; its alpha, beta and gamma come from its
+    own contraction, which may round otherwise in the last bit, and the
+    margins cover that as they cover any float32 rounding."""
+    alpha, beta, gamma, _, _, _ = _abg(obs, inv_var, lo, hi)
+    u = (beta / alpha.clamp_min(_ALPHA_EPS)).clamp(0.0, 1.0)
+    chi2c = (alpha * u - 2.0 * beta) * u + gamma
+    zero = _zero_weight(chi2c, logw[:, None, :], (out - log_norm)[:, :, None],
+                        gamma.abs() + 2.0 * beta.abs() + alpha)
+    return (mask > 0.5)[:, None, :] & zero
+
+
+def _zero_weight(chi2, logw, outp, scale):
+    """True where a softmax weight whose chi2 is at least `chi2` is
+    certain to be 0.0: the bound on its log, with `scale` the magnitudes
+    that cancel in chi2, lies below _SKIP_BELOW."""
+    slack = _SKIP_REL * scale
+    return -0.5 * chi2 + logw - outp + _SKIP_LOG_WIDTH + slack < _SKIP_BELOW
+
+
+# Segments per group of kernel 4's group rule: the 32 lanes of one warp.
+SKIP_GROUP = 32
+
+
+def marglik_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
+    """Kernel 4's group rule: bool [C, S, ceil(T / SKIP_GROUP)], True where
+    every element of the (chain, star, group of SKIP_GROUP consecutive
+    segments) is certain to have an exact 0.0 softmax weight, found before
+    any band contraction.
+
+    Per band, the group's live segments lie in [mn_b, mx_b] (the least and
+    the largest of their lo and hi), so every chi2 on them is at least
+    lb = sum_b iv_b dist(o_b, [mn_b, mx_b])^2, and the terms of
+    marglik_bwd_skip's slack are at most Gm = sum iv R^2 >= gamma,
+    Bt = sum iv R W >= |beta| and A = sum iv W^2 >= alpha, with
+    R = max(|o - mn|, |o - mx|) and W = mx - mn.  The rule is
+    marglik_bwd_skip's with lb for chi2c, the group's largest live logw for
+    logw and (Gm, Bt, A) in the slack.  A group with no live segment gives
+    NaN and is never marked.  The bands are summed in order, so that
+    csrc/marglik.cu can repeat these float32 operations exactly."""
+    C, T, B = lo.shape
+    G = -(-T // SKIP_GROUP)
+    pad = G * SKIP_GROUP - T
+    live = mask > 0.5
+    inf = torch.full_like(lo, torch.inf)
+    mn = torch.where(live[..., None], torch.minimum(lo, hi), inf)
+    mx = torch.where(live[..., None], torch.maximum(lo, hi), -inf)
+    mn = torch.nn.functional.pad(mn, (0, 0, 0, pad), value=torch.inf)
+    mx = torch.nn.functional.pad(mx, (0, 0, 0, pad), value=-torch.inf)
+    mn = mn.reshape(C, G, SKIP_GROUP, B).amin(2)[:, None]     # [C, 1, G, B]
+    mx = mx.reshape(C, G, SKIP_GROUP, B).amax(2)[:, None]
+    lw = torch.where(live, logw, torch.full_like(logw, -torch.inf))
+    lw = torch.nn.functional.pad(lw, (0, pad), value=-torch.inf)
+    mlw = lw.reshape(C, G, SKIP_GROUP).amax(2)[:, None]       # [C, 1, G]
+    lb = gm = bt = a = lo.new_zeros((C, obs.shape[0], G))
+    for b in range(B):
+        o = obs[None, :, None, b]                              # [1, S, 1]
+        w = inv_var[None, :, None, b]
+        lo_b, hi_b = mn[..., b], mx[..., b]
+        dist = torch.maximum(lo_b - o, o - hi_b).clamp_min(0.0)
+        r = torch.maximum((o - lo_b).abs(), (o - hi_b).abs())
+        width = hi_b - lo_b
+        lb = lb + w * dist * dist
+        gm = gm + w * r * r
+        bt = bt + w * r * width
+        a = a + w * width * width
+    return _zero_weight(lb, mlw, (out - log_norm)[:, :, None],
+                        gm + 2.0 * bt + a)
 
 
 _NAMES = ("obs", "inv_var", "log_norm", "lo", "hi", "logw", "maskf")

@@ -14,9 +14,9 @@ backward carries the cotangent through the flux combine and through the
 smoothstep weights into the node masses, the lit ramp, the secondary table
 and the four base-axis vectors.
 
-Kernel 2 evaluates the weights sparsely: `hat_zero_bounds` and `hat_window`
-below are the rule for which base-axis entries a node can touch, and
-`csrc/table.cu` follows it operation for operation.
+Kernels 1 and 2 evaluate the weights sparsely: `hat_zero_bounds` and
+`hat_window` below are the rule for which base-axis entries a node can
+touch, and `csrc/table.cu` follows it operation for operation.
 """
 from __future__ import annotations
 
@@ -66,8 +66,8 @@ def _probe(edge, ramp, inv, sign):
 
 
 def hat_zero_bounds(xl, inv_dl, xr, inv_dr):
-    """Kernel 2's window rule, part 1: per axis entry e, bounds (lz, rz)
-    [C, E2] such that for every float32 query q <= lz[e] or q >= rz[e] the
+    """The table kernels' window rule, part 1: per axis entry e, bounds
+    (lz, rz) [C, E2] such that for every float32 query q <= lz[e] or q >= rz[e] the
     entry's weight and both factors 6u(1-u) are exactly 0.0.
 
     With up = clamp01((q - xl) idl) and dn = clamp01((xr - q) idr), idl and
@@ -91,10 +91,10 @@ def hat_zero_bounds(xl, inv_dl, xr, inv_dr):
 
 
 def hat_window(m2N, lz, rz):
-    """Kernel 2's window rule, part 2: the axis entries lo..hi ([C, N]
-    each, inclusive, empty when lo > hi) that node queries m2N [C, 1, N] can
-    touch, i.e. lz < q < rz, by binary search on the monotone bounds.  A
-    NaN query takes the whole axis."""
+    """The table kernels' window rule, part 2: the axis entries lo..hi
+    ([C, N] each, inclusive, empty when lo > hi) that node queries m2N
+    [C, 1, N] can touch, i.e. lz < q < rz, by binary search on the
+    monotone bounds.  A NaN query takes the whole axis."""
     q = m2N[:, 0, :].contiguous()
     lo = torch.searchsorted(rz.contiguous(), q, right=True)
     hi = torch.searchsorted(lz.contiguous(), q, right=False) - 1

@@ -34,7 +34,15 @@ printing any result.  It imports nothing of JAX.
 
 runs phases 1 and 5 alone and prints the per-kernel JSON; with --root it
 times the base_tpu_torch found under DIR (another checkout), so that two
-versions can be compared on one card in one call.
+versions can be compared on one card in one call.  With --save-outputs
+PATH it also saves kernels 1 and 4's inputs and outputs at both shapes,
+and with --against PATH it runs this checkout's kernels 1 and 4 on the
+saved inputs and reports whether the outputs are bit-identical.
+
+Phase 5 also reports kernel 4's skip rules on these inputs: the share of
+(chain, star, 32-segment group) pairs the group rule marks, the share of
+live elements the element rule marks, and the share of pairs in which no
+element needs the full path.
 """
 from __future__ import annotations
 
@@ -419,6 +427,44 @@ def time_kernels(model, z) -> dict:
     }
 
 
+def skip_shares(marg_in) -> dict | None:
+    """Kernel 4's skip rules (ops.marglik.marglik_bwd_group_skip and
+    marglik_bwd_skip) on these inputs, as the kernel applies them: the
+    (chain, star, 32-segment group)s with a live segment (`pairs`) and
+    those the group rule marks before any band contraction; then, in the
+    pairs it leaves, the live elements that the element rule marks after
+    the contraction (`contracted`) and those it keeps (`kept`, the full
+    path).  Shares: of pairs marked by the group rule, of live elements
+    marked by the element rule alone, and of pairs in which the element
+    rule keeps none.  None for a checkout without the rules."""
+    from base_tpu_torch.ops import marglik as ml
+
+    if not hasattr(ml, "marglik_bwd_group_skip"):
+        return None
+    out = ml.marglik_fwd_plain(*marg_in)
+    skip = ml.marglik_bwd_skip(*marg_in, out)
+    gskip = ml.marglik_bwd_group_skip(*marg_in, out)
+    live = (marg_in[6] > 0.5)[:, None, :].expand_as(skip)
+    C, S, T = skip.shape
+    pad = torch.zeros((C, S, gskip.shape[2] * 32 - T), dtype=torch.bool,
+                      device=skip.device)
+
+    def groups(x):
+        return torch.cat([x, pad], -1).reshape(C, S, -1, 32).any(-1)
+
+    in_pair = ~gskip.repeat_interleave(32, -1)[..., :T]
+    need = live & ~skip
+    pairs = int(groups(live).sum())
+    n_live = int(live.sum())
+    return dict(
+        live=n_live, pairs=pairs, pairs_marked=int(gskip.sum()),
+        contracted=int((live & in_pair & skip).sum()),
+        kept=int((need & in_pair).sum()),
+        group_rule_share=float(gskip.sum()) / max(pairs, 1),
+        element_share=float(skip.sum()) / max(n_live, 1),
+        warp_skip_share=1.0 - float(groups(need).sum()) / max(pairs, 1))
+
+
 def kernel_work(model, z) -> dict:
     """{kernel: (flops, bytes)} that each kernel needs on the main path's
     inputs at points z.  Bytes: each input read once, each output written
@@ -426,7 +472,8 @@ def kernel_work(model, z) -> dict:
     csrc/ (an FMA is 2, a transcendental or a division 1) and, where the
     work depends on the data, over what these inputs need: the table
     kernels over the (node, axis entry) pairs with a non-zero hat weight or
-    factor, the marginal kernels over the unmasked segments."""
+    factor, the marginal kernels over the unmasked segments, and kernel 4's
+    full path over the elements its skip rule keeps."""
     from base_tpu_torch.ops import table as tb
 
     table_in, marg_in = kernel_inputs(model, z)
@@ -439,9 +486,12 @@ def kernel_work(model, z) -> dict:
     S = marg_in[0].shape[0]
     T = marg_in[3].shape[1]
     live = S * int((marg_in[6] > 0.5).sum())        # (chain, star, segment)
+    skips = skip_shares(marg_in)
     f = 4                                           # bytes per float
     table_io = f * (C * B * N + 2 * C * N + C * B * E2 + 4 * C * E2)
     marg_in_bytes = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
+    marg_bwd_bytes = (marg_in_bytes + f * 2 * C * S
+                      + f * (2 * C * T * B + C * T))
     return {
         # Per non-zero entry: 2 ramps + 2 smoothsteps + weight (18), B FMAs;
         # per (node, band): 2 exp, the flux sum, log (8).
@@ -454,11 +504,20 @@ def kernel_work(model, z) -> dict:
         # Per live element: band contraction 11B, core_width and
         # phi_interval_scaled ~100, online update 5.
         "marglik_fwd": (live * (11 * B + 105), marg_in_bytes + f * C * S),
-        # Per live element: the forward's 11B + 100, moments and softmax
-        # weight ~38, the cotangents 14B.
-        "marglik_bwd": (live * (25 * B + 138),
-                        marg_in_bytes + f * 2 * C * S
-                        + f * (2 * C * T * B + C * T)),
+        # Per (group, star) pair with a live segment: the group rule,
+        # 20B + 10.  Per element the group rule leaves: the band
+        # contraction 11B and the element rule 20, and where that keeps
+        # it, the forward's 100, moments and softmax weight ~38 and the
+        # cotangents 14B.
+        # (A checkout without the rules is counted as below.)
+        "marglik_bwd": ((skips["pairs"] * (20 * B + 10)
+                         + skips["contracted"] * (11 * B + 20)
+                         + skips["kept"] * (25 * B + 158)) if skips
+                        else live * (25 * B + 138), marg_bwd_bytes),
+        # Every live element at the full cost, the count from before the
+        # skip rules, so that older bounds stay comparable.
+        "marglik_bwd_dense": (live * (25 * B + 138), marg_bwd_bytes),
+        "marglik_bwd_skip": skips,
     }
 
 
@@ -554,12 +613,63 @@ def kernel_report(model, model_up4, z) -> dict:
             roofline_share=share, ms_up4=ms4, plain_ms_up4=plain_ms4,
             device_ms_up4=dev4, bound_ms_up4=bound_up4, bound_by_up4=by_up4,
             roofline_share_up4=share4)
+        if name == "marglik_bwd":
+            report[name].update(
+                bound_ms_dense=bound(*work["marglik_bwd_dense"])[0],
+                bound_ms_dense_up4=bound(*work_up4["marglik_bwd_dense"])[0],
+                skip=work["marglik_bwd_skip"],
+                skip_up4=work_up4["marglik_bwd_skip"])
+            log(f"  marglik_bwd skip rule: bench {json.dumps(report[name]['skip'])}"
+                f"; upsample 4 {json.dumps(report[name]['skip_up4'])}; "
+                f"bound with every live element at full cost "
+                f"{report[name]['bound_ms_dense']:.5f} ms "
+                f"({report[name]['bound_ms_dense_up4']:.5f})")
         log(f"  {name}: kernel {ms:.4f} ms, device {dev} ms (upsample 4: "
             f"{ms4:.4f}, device {dev4}); plain {plain_ms:.4f} ms "
             f"({plain_ms4:.4f}); bound {bound_ms:.5f} ms by {bound_by} "
             f"({bound_up4:.5f} by {by_up4}); share of bound {share:.4f} "
             f"({share4:.4f})")
     return report
+
+
+def kernel_outputs(models: dict, z) -> dict:
+    """Kernels 1 and 4 on phase 2's inputs at each shape, with the inputs,
+    for --save-outputs."""
+    from base_tpu_torch.ops import marglik as ml
+    from base_tpu_torch.ops import table as tb
+
+    res = {}
+    for label, model in models.items():
+        table_in, marg_in = kernel_inputs(model, z)
+        out = ml.marglik_fwd_plain(*marg_in)
+        gen = torch.Generator(device=z.device).manual_seed(7)
+        g = torch.randn(out.shape, generator=gen, device=z.device)
+        res[label] = dict(table_in=table_in, marg_in=marg_in, out=out, g=g,
+                          table_fwd=tb.table_fwd_cuda(*table_in),
+                          marglik_bwd=ml.marglik_bwd_cuda(*marg_in, out, g))
+    return res
+
+
+def compare_outputs(path: str) -> None:
+    """Kernels 1 and 4 of this checkout on the inputs saved at `path` (by
+    --save-outputs, from another checkout): whether kernel 1's outputs are
+    bit-identical, and both kernels' largest differences."""
+    from base_tpu_torch.ops import marglik as ml
+    from base_tpu_torch.ops import table as tb
+
+    saved = torch.load(path, map_location="cuda:0")
+    for label, r in saved.items():
+        comb = tb.table_fwd_cuda(*r["table_in"])
+        diff = (comb - r["table_fwd"]).abs()
+        log(f"  [{label}] table_fwd vs {path}: bit-identical "
+            f"{torch.equal(comb, r['table_fwd'])}, {int((diff > 0).sum())} of "
+            f"{diff.numel()} outputs differ, max|diff| {float(diff.max()):.3e}")
+        grads = ml.marglik_bwd_cuda(*r["marg_in"], r["out"], r["g"])
+        report = grad_errs(("dlo", "dhi", "dlogw"), grads,
+                           r["marglik_bwd"])[2]
+        same = all(torch.equal(a, b) for a, b in zip(grads, r["marglik_bwd"]))
+        log(f"  [{label}] marglik_bwd vs {path}: bit-identical {same}; "
+            f"abs/scaled {report}")
 
 
 def setup(root: str | None):
@@ -598,11 +708,23 @@ def main() -> None:
                     help="phases 1 and 5 only: build and time the kernels")
     ap.add_argument("--root", default=None,
                     help="time the base_tpu_torch of this checkout instead")
+    ap.add_argument("--save-outputs", default=None, metavar="PATH",
+                    help="with --times-only: save kernels 1 and 4's inputs "
+                         "and outputs at both shapes to PATH")
+    ap.add_argument("--against", default=None, metavar="PATH",
+                    help="with --times-only: compare kernels 1 and 4 with "
+                         "the outputs saved at PATH")
     args = ap.parse_args()
     data, model, model_up4, z = setup(args.root)
     models = {"bench": model, "upsample 4": model_up4}
 
     if args.times_only:
+        if args.save_outputs:
+            torch.save(kernel_outputs(models, z), args.save_outputs)
+            log(f"kernels 1 and 4 outputs saved to {args.save_outputs}")
+        if args.against:
+            log(f"kernels 1 and 4 against {args.against}")
+            compare_outputs(args.against)
         log("phase 5: kernel times (CUDA events) and bounds")
         report = kernel_report(model, model_up4, z)
         density_walls(models, z)
@@ -642,7 +764,8 @@ def main() -> None:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             roofline_share=r["roofline_share"], ms_up4=r["ms_up4"],
-            device_ms=r["device_ms"], device_ms_up4=r["device_ms_up4"]))
+            device_ms=r["device_ms"], device_ms_up4=r["device_ms_up4"],
+            **{k: r[k] for k in ("bound_ms_dense",) if k in r}))
         if not all(math.isfinite(kernels[-1][k]) for k in
                    ("ms", "plain_ms", "bound_ms", "ms_up4")):
             raise AssertionError(f"{name}: a time is not finite")

@@ -19,6 +19,7 @@ from base_tpu.ops.pallas_marglik import fused_log_marginals as jfused
 from base_tpu_torch.grids.isochrone import Isochrone as TIsochrone
 from base_tpu_torch.model import likelihood as tlk
 from base_tpu_torch.ops import marglik as tml
+from base_tpu_torch.ops.special import NEG_INF
 
 torch.set_num_threads(1)
 
@@ -316,3 +317,187 @@ def test_table_window_adversarial_axes(case):
     assert misses == 0
     if case != "unsorted":
         assert int(width.max()) <= 5
+
+
+# --- Kernel 4's skip rule (ops.marglik.marglik_bwd_skip) -------------------
+
+TRUTH = np.array([9.3, 0.27, -0.5, 10.0, 0.3, 0.5, 0.0, 0.0, 0.0], np.float32)
+PRIOR_SIGMA = np.array([-1, -1, 0.3, 0.2, 0.1, -1, -1, -1, -1], np.float32)
+FREE = np.array([1, 1, 1, 1, 1, 0, 0, 0, 0], np.float32)
+
+
+def _config1_marglik_args(upsample, chains=4):
+    """Kernel 4's inputs on the config-1 path (synthetic grid of 64 EEPs,
+    100 simulated stars with 30% binaries, n_q 8) at `chains` points
+    scattered around the truth, through the port's own fixtures."""
+    from base_tpu_torch.grids import synthetic as tsyn
+    from base_tpu_torch.grids.isochrone import derive_isochrone as tderive
+    from base_tpu_torch.grids.isochrone import upsample_isochrone as tups
+    from base_tpu_torch.model import posterior as tpost
+    from base_tpu_torch.model.stardata import make_ms_stars as tstars
+    from base_tpu_torch.sim.scatter import scatter_cluster
+    from base_tpu_torch.sim.simulate import simulate_cluster
+
+    grid = tsyn.make_grid(n_eep=64, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    cat = simulate_cluster(grid, torch.as_tensor(TRUTH), 100, gen,
+                           percent_binary=0.3)
+    sc = scatter_cluster(cat.mags, gen, limit_mag=24.0)
+    stars = tstars(sc.mags.numpy(), sc.sigmas.numpy(), cm_prior=0.99,
+                   device="cpu")
+    model = tpost.make_single_pop_model(grid, stars, TRUTH, PRIOR_SIGMA,
+                                        n_q=8, upsample=upsample,
+                                        device="cpu")
+    tr = tpost.default_transform(model)
+    noise = np.random.default_rng(1).normal(0, 0.05, (chains, 9)) * FREE
+    noise[0] = 0.0
+    z = tr.inverse(torch.as_tensor(TRUTH)) + _t(noise.astype(np.float32))
+    x = tr.forward(z)
+    base = tderive(grid, x[:, 2], x[:, 1], x[:, 0])
+    table = tlk.build_segment_table_fused(
+        tups(base, upsample), model.q_grid, x[:, 3], x[:, 4],
+        model.abs_coefs, sec_iso=base)
+    return (stars.obs_mags, stars.inv_var, stars.log_norm, table.lo,
+            table.hi, table.logw, table.mask.float())
+
+
+def _softmax_weights(args, out, g=None):
+    """marglik_bwd_plain's per-element weights g exp(core - out') width
+    [C, S, T], zero on masked segments."""
+    obs, iv, ln, lo, hi, logw, mask = args
+    alpha, beta, gamma, _, _, _ = tml._abg(obs, iv, lo, hi)
+    live = (mask > 0.5)[:, None, :]
+    core, width, _ = tml._core_width(alpha, beta, gamma, logw[:, None, :],
+                                     live)
+    w = torch.exp(core - (out - ln)[:, :, None]) * width
+    if g is not None:
+        w = g[:, :, None] * w
+    return torch.where(live, w, torch.zeros_like(w))
+
+
+def _skip_misses(args, out, g=None):
+    """(marked elements with a non-zero weight, marked, live elements)."""
+    skip = tml.marglik_bwd_skip(*args, out)
+    w = _softmax_weights(args, out, g)
+    live = int((args[6] > 0.5).sum()) * args[0].shape[0]
+    return int((skip & (w != 0.0)).sum()), int(skip.sum()), live
+
+
+def _group_misses(args, out, g=None):
+    """Kernel 4's group rule: (marked (chain, star, group)s holding an
+    element with a non-zero weight, marked, those with a live segment)."""
+    marked = tml.marglik_bwd_group_skip(*args, out)
+    w = _softmax_weights(args, out, g)
+    C, S, T = w.shape
+    pad = marked.shape[2] * tml.SKIP_GROUP - T
+    live = torch.nn.functional.pad(args[6] > 0.5, (0, pad))
+    nonzero = torch.nn.functional.pad(w != 0.0, (0, pad))
+    nonzero = nonzero.reshape(C, S, -1, tml.SKIP_GROUP).any(-1)
+    live = live.reshape(C, 1, -1, tml.SKIP_GROUP).any(-1).expand_as(marked)
+    return (int((marked & nonzero).sum()), int(marked.sum()),
+            int(live.sum()))
+
+
+@pytest.mark.parametrize("upsample", [1, 4])
+def test_marglik_skip_config1(upsample):
+    """On config-1 inputs at 4 chains the element rule marks no element
+    whose weight is non-zero and marks >= 90% of the live elements (98%
+    and 99% at 64 chains, upsample 1 and 4); the group rule marks no group
+    holding a non-zero weight and marks >= 75% of the (group, star) pairs
+    with a live segment (89% and 94% here)."""
+    args = _config1_marglik_args(upsample)
+    out = tml.marglik_fwd_plain(*args)
+    misses, marked, live = _skip_misses(args, out)
+    assert misses == 0
+    assert marked >= 0.9 * live
+    misses, marked, groups = _group_misses(args, out)
+    assert misses == 0
+    assert marked >= 0.75 * groups
+
+
+def _adversarial_args(case, C=2, S=29, T=67, B=8, seed=13):
+    """A random marginal problem bent toward one edge of the rule."""
+    rng = np.random.default_rng(seed)
+    lo = rng.normal(12.0, 3.0, (C, T, B))
+    hi = lo + rng.normal(0.0, 0.3, (C, T, B))
+    sig = np.abs(rng.normal(0.05, 0.02, (S, B))) + 0.01
+    pick = rng.integers(0, T, S)
+    obs = lo[0, pick] + rng.normal(0, 0.05, (S, B))
+    mask = rng.random((C, T)) > 0.15
+    if case == "flat":          # alpha = 0 exactly, or below _FLAT_EPS
+        hi[:, ::3] = lo[:, ::3]
+        hi[:, 1::3] = lo[:, 1::3] + 1e-6 * rng.choice([-1.0, 1.0],
+                                                      hi[:, 1::3].shape)
+        obs = lo[0, pick] + rng.normal(0, 0.3, (S, B))
+    elif case == "far_mu":      # obs far along the segment: mu ~ +-50
+        k = rng.choice([-50.0, -3.0, 4.0, 50.0], (S, 1))
+        obs = lo[0, pick] + k * (hi[0, pick] - lo[0, pick])
+    elif case == "huge_gamma":  # gamma ~ 1e7 against chi2c = O(1-100)
+        sig[:] = 0.01
+        hi = lo + rng.normal(0.0, 10.0, (C, T, B))
+        u = rng.uniform(0.2, 0.8, (S, 1))
+        obs = (lo[0, pick] + u * (hi[0, pick] - lo[0, pick])
+               + rng.normal(0, 0.02, (S, B)))
+    elif case == "unobserved":  # whole bands with inv_var = 0
+        sig[rng.random((S, B)) < 0.5] = -9.0
+        sig[0] = -9.0           # a star with no band at all
+    elif case == "masked":      # a chain with every segment masked
+        mask[1] = False
+    iv = np.where(sig > 0, 1.0 / sig**2, 0.0)
+    ln = np.where(sig > 0, -np.log(np.abs(sig)) - 0.9189385332046727,
+                  0.0).sum(-1)
+    logw = rng.normal(-2.0, 1.0, (C, T))
+    arrays = (obs, iv, ln, lo, hi, logw, mask)
+    return tuple(torch.as_tensor(np.asarray(a, np.float32)) for a in arrays)
+
+
+@pytest.mark.parametrize("case", ["flat", "far_mu", "huge_gamma",
+                                  "unobserved", "masked"])
+def test_marglik_skip_adversarial_inputs(case):
+    """Flat segments, mu far outside [0, 1], gamma ~ 1e7, unobserved
+    bands, and a chain with every segment masked (out = NEG_INF): no marked
+    element has a non-zero weight, and masked segments are never marked."""
+    args = _adversarial_args(case)
+    out = tml.marglik_fwd_plain(*args)
+    if case == "masked":
+        assert bool((out[1] == NEG_INF + args[2]).all())
+    misses, marked, live = _skip_misses(args, out)
+    assert misses == 0
+    skip = tml.marglik_bwd_skip(*args, out)
+    assert not bool((skip & ~(args[6] > 0.5)[:, None, :]).any())
+    if case in ("far_mu", "huge_gamma"):
+        assert marked > 0
+    misses, marked, groups = _group_misses(args, out)
+    assert misses == 0
+    assert marked <= groups
+
+
+def test_marglik_skip_outputs_near_threshold():
+    """With out' set so that the elements' log weights lie around the
+    rules' threshold, and out' = NEG_INF for one star, neither rule marks
+    an element or a group with a non-zero weight (nor any of that star's);
+    with g = 0 every weight is zero and the rules do not depend on g."""
+    args = _adversarial_args("plain")
+    obs, iv, ln, lo, hi, logw, mask = args
+    alpha, beta, gamma, _, _, _ = tml._abg(obs, iv, lo, hi)
+    live = (mask > 0.5)[:, None, :]
+    core, width, _ = tml._core_width(alpha, beta, gamma, logw[:, None, :],
+                                     live)
+    peak = (core + torch.log(width)).amax(-1)                # [C, S]
+    rng = np.random.default_rng(14)
+    total = total_groups = 0
+    for shift in (60.0, 90.0, 100.0, 104.0, 110.0, 125.0):
+        jitter = _t(rng.uniform(-8.0, 8.0, peak.shape).astype(np.float32))
+        out = peak + shift + jitter + ln
+        out[0, 3] = NEG_INF + ln[3]
+        misses, marked, _ = _skip_misses(args, out)
+        assert misses == 0
+        assert not bool(tml.marglik_bwd_skip(*args, out)[0, 3].any())
+        total += marked
+        g0 = torch.zeros_like(out)
+        assert _skip_misses(args, out, g0)[:2] == (0, marked)
+        misses, marked, _ = _group_misses(args, out)
+        assert misses == 0
+        assert not bool(tml.marglik_bwd_group_skip(*args, out)[0, 3].any())
+        total_groups += marked
+    assert total > 0 and total_groups > 0
