@@ -39,6 +39,12 @@ class StarStatus(enum.IntEnum):
     DNE = 9
 
 
+# Solar bolometric magnitude (toy WD atmospheres, grids/wd_atmosphere.py).
+MBOL_SUN = 4.75
+
 # Lognormal IMF prior on primary mass: log10(M/Msun) ~ N(mean, sigma^2).
 IMF_LOG_MEAN = -1.02
 IMF_LOG_SIGMA = 0.677
+
+# Maximum ZAMS mass of a WD precursor (above this: NS/BH, zero likelihood).
+MAX_WD_PRECURSOR_MASS = 8.0

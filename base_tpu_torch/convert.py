@@ -9,6 +9,8 @@ import numpy as np
 import torch
 
 from base_tpu_torch.grids.isochrone import IsochroneGrid
+from base_tpu_torch.grids.wd_atmosphere import WdAtmosphereGrid
+from base_tpu_torch.grids.wd_cooling import WdCoolingGrid
 from base_tpu_torch.model.posterior import SinglePopModel
 from base_tpu_torch.model.priors import ClusterPriors
 from base_tpu_torch.model.stardata import MSStars
@@ -44,14 +46,47 @@ def stars_from_numpy(obs_over_var, inv_var, c0, log_norm, log_cm,
     )
 
 
+def wd_cooling_from_numpy(carb, mass, log_age, log_teff, log_radius, *,
+                          device: torch.device | str,
+                          name: str = "") -> WdCoolingGrid:
+    """WdCoolingGrid from the fields of a base_tpu WdCoolingGrid."""
+    return WdCoolingGrid(
+        carb=_t(carb, device), mass=_t(mass, device),
+        log_age=_t(log_age, device), log_teff=_t(log_teff, device),
+        log_radius=_t(log_radius, device), name=name,
+    )
+
+
+def wd_atm_from_numpy(log_teff, log_g, mags, bands: Sequence[str] = (), *,
+                      device: torch.device | str,
+                      name: str = "") -> WdAtmosphereGrid:
+    """WdAtmosphereGrid from the fields of a base_tpu WdAtmosphereGrid."""
+    return WdAtmosphereGrid(
+        log_teff=_t(log_teff, device), log_g=_t(log_g, device),
+        mags=_t(mags, device), bands=tuple(bands), name=name,
+    )
+
+
 def model_from_numpy(grid: Mapping, stars: Mapping, prior_mean, prior_sigma,
                      q_grid, abs_coefs, binaries: bool = True,
                      uniform_q: bool = False, use_pallas: bool = True,
-                     upsample: int = 1, *,
+                     upsample: int = 1, wd_cooling: Mapping | None = None,
+                     wd_atm: Mapping | None = None,
+                     wd_stars: Mapping | None = None, mz_grid=None,
+                     ifmr_kind: str = "linear", p_db: float = 0.1, *,
                      device: torch.device | str) -> SinglePopModel:
-    """SinglePopModel (MS-only) from a base_tpu SinglePopModel's pieces:
-    `grid` and `stars` map field names to arrays (plus `bands` and
-    optionally `name` for the grid)."""
+    """SinglePopModel from a base_tpu SinglePopModel's pieces: `grid`,
+    `stars` and, for a WD branch, `wd_cooling`, `wd_atm` and `wd_stars`
+    map field names to arrays (plus the grids' `bands` and `name`), and
+    `mz_grid` is base_tpu's precursor-mass grid."""
+    wd = {}
+    if wd_stars is not None:
+        wd = dict(
+            wd_cooling=wd_cooling_from_numpy(**wd_cooling, device=device),
+            wd_atm=wd_atm_from_numpy(**wd_atm, device=device),
+            wd_stars=stars_from_numpy(**wd_stars, device=device),
+            mz_grid=_t(mz_grid, device),
+        )
     return SinglePopModel(
         grid=grid_from_numpy(**grid, device=device),
         stars=stars_from_numpy(**stars, device=device),
@@ -59,8 +94,11 @@ def model_from_numpy(grid: Mapping, stars: Mapping, prior_mean, prior_sigma,
                              sigma=_t(prior_sigma, device)),
         q_grid=_t(q_grid, device),
         abs_coefs=_t(abs_coefs, device),
+        ifmr_kind=ifmr_kind,
+        p_db=p_db,
         binaries=binaries,
         uniform_q=uniform_q,
         use_pallas=use_pallas,
         upsample=upsample,
+        **wd,
     )

@@ -429,10 +429,15 @@ marglik_bwd_kernel(const BwdArgs a) {
       const Segment g = core_width(alpha, beta, gamma, lw);
       // exp(core - out') * width = term / sum: the softmax weight.
       const float gw = s_g[ss] * expf(g.core - outp) * g.width;
-      const float phi_s0 =
-          INV_SQRT_2PI * expf(0.5f * fminf(g.unear_sq - g.u0 * g.u0, 0.0f));
-      const float phi_s1 =
-          INV_SQRT_2PI * expf(0.5f * fminf(g.unear_sq - g.u1 * g.u1, 0.0f));
+      // unear_sq is u0 * u0 or u1 * u1 rounded, so one of these exponents
+      // must come out exactly 0: without FMA contraction.  An FMA leaves
+      // the rounding error of u0^2 (~1e-3 at u0 ~ 150, a star before a
+      // steep WD segment), and <t> = mu + sigma r1, which cancels to
+      // ~sigma / u0 there, moves by ~|mu| times that.
+      const float phi_s0 = INV_SQRT_2PI *
+          expf(0.5f * fminf(__fsub_rn(g.unear_sq, __fmul_rn(g.u0, g.u0)), 0.0f));
+      const float phi_s1 = INV_SQRT_2PI *
+          expf(0.5f * fminf(__fsub_rn(g.unear_sq, __fmul_rn(g.u1, g.u1)), 0.0f));
       const float zs = fmaxf(g.width_s, 1e-12f);
       const float r1 = (phi_s0 - phi_s1) / zs;
       const float sigma = g.rsq;

@@ -26,7 +26,13 @@ import torch
 from base_tpu_torch.grids.isochrone import Isochrone
 from base_tpu_torch.model import priors
 from base_tpu_torch.model.stardata import MSStars
-from base_tpu_torch.ops.marglik import fused_log_marginals, marglik_fwd_plain
+from base_tpu_torch.ops.marglik import (
+    _ALPHA_EPS,
+    _FLAT_EPS,
+    _abg,
+    fused_log_marginals,
+    marglik_fwd_plain,
+)
 from base_tpu_torch.ops.special import NEG_INF, masked_logsumexp
 from base_tpu_torch.ops.table import (
     LN10_04,
@@ -34,6 +40,7 @@ from base_tpu_torch.ops.table import (
     fused_combined_node_mags,
 )
 
+LOG_2PI = 1.8378770664093453
 
 
 class SegmentTable(NamedTuple):
@@ -199,6 +206,45 @@ def build_segment_table_fused(
         logw=logw,
         mask=mask,
     )
+
+
+def _log_ndtr_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """log(Phi(b) - Phi(a)) for b >= a, stable in both tails: an interval
+    in the right tail is reflected to the left one, where log_ndtr keeps
+    its precision."""
+    flip = (a + b) > 0
+    aa = torch.where(flip, -b, a)
+    bb = torch.where(flip, -a, b)
+    la = torch.special.log_ndtr(aa)
+    lb = torch.special.log_ndtr(bb)
+    # la <= lb; the ratio is held away from 1 so that log1p stays finite
+    # for infinitesimally thin intervals (their weight is negligible).
+    d = torch.clamp(la - lb, max=-1e-7)
+    return lb + torch.log1p(-torch.exp(d))
+
+
+def segment_logintegrals(stars: MSStars, table: SegmentTable):
+    """log of the exact per-segment Gaussian mass integral per chain and
+    star, [C, S, T].  With chi2(t) = alpha t^2 - 2 beta t + gamma along
+    the segment (mags lo + t (hi - lo), t in [0, 1]):
+
+      integral_0^1 exp(-chi2(t)/2) dt
+        = exp(-(gamma - beta^2/alpha)/2) sqrt(2 pi / alpha)
+          * [Phi(sqrt(alpha)(1 - mu)) - Phi(-sqrt(alpha) mu)],  mu = beta/alpha,
+
+    plus the star's log_norm.  Near-flat segments (alpha below the
+    erf-cancellation guard) take the midpoint value."""
+    alpha, beta, gamma, _, _, _ = _abg(stars.obs_mags, stars.inv_var,
+                                      table.lo, table.hi)
+    ac = alpha.clamp_min(_ALPHA_EPS)
+    mu = beta / ac
+    resid = (gamma - beta * beta / ac).clamp_min(0.0)
+    sq = torch.sqrt(ac)
+    log_phi = _log_ndtr_diff(-sq * mu, sq * (1.0 - mu))
+    log_i = -0.5 * resid + 0.5 * (LOG_2PI - torch.log(ac)) + log_phi
+    flat = -0.5 * (gamma - beta + 0.25 * alpha)
+    out = torch.where(alpha > _FLAT_EPS, log_i, flat)
+    return out + stars.log_norm[:, None]
 
 
 def ms_star_log_marginals(stars: MSStars, table: SegmentTable):

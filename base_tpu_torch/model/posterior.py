@@ -1,8 +1,9 @@
-"""Posterior assembly (port of base_tpu.model.posterior, MS-only).
+"""Posterior assembly (port of base_tpu.model.posterior).
 
 `log_post(model, params [C, P]) -> [C]`: bounds check -> cluster prior ->
-isochrone derive -> per-star marginal likelihoods -> field mixture, for a
-batch of chains at once.  Samplers differentiate it with
+isochrone derive -> per-star marginal likelihoods (MS stars, and WD stars
+when the model has a WD branch) -> field mixture, for a batch of chains at
+once.  Samplers differentiate it with
 `torch.autograd.grad(lp.sum(), z)`, valid because the chains are
 independent.
 """
@@ -20,7 +21,10 @@ from base_tpu_torch.grids.isochrone import (
     derive_isochrone,
     upsample_isochrone,
 )
+from base_tpu_torch.grids.wd_atmosphere import WdAtmosphereGrid
+from base_tpu_torch.grids.wd_cooling import WdCoolingGrid
 from base_tpu_torch.model import likelihood as lk
+from base_tpu_torch.model import wd as wd_mod
 from base_tpu_torch.model.priors import ClusterPriors
 from base_tpu_torch.model.stardata import MSStars
 from base_tpu_torch.ops.special import NEG_INF
@@ -32,12 +36,14 @@ from base_tpu_torch.utils.transforms import (
 
 @dataclasses.dataclass(frozen=True)
 class SinglePopModel:
-    """Everything static for one single-population (MS-only) run.
+    """Everything static for one single-population run.
 
-    `use_pallas` means "use the kernels": the fused table build (with
-    binaries) and the fused marginal, which launch the CUDA kernels on a
-    CUDA model and run their plain versions on a CPU model.  A CUDA model
-    requires it.  `upsample` inserts (upsample - 1) exact piecewise-linear
+    The WD branch is optional: with `wd_stars` None the density is
+    MS-only; with the WD fields set, log_post adds the precursor-mass
+    marginalised WD likelihood (model.wd).  `use_pallas` means "use the
+    kernels": the fused table build (with binaries) and the fused marginal
+    (MS and WD), which launch the CUDA kernels on a CUDA model and run
+    their plain versions on a CPU model.  A CUDA model requires it.  `upsample` inserts (upsample - 1) exact piecewise-linear
     nodes per EEP segment before marginalizing."""
 
     grid: IsochroneGrid
@@ -45,6 +51,12 @@ class SinglePopModel:
     priors: ClusterPriors
     q_grid: torch.Tensor      # [Q] mass-ratio quadrature nodes
     abs_coefs: torch.Tensor   # [B] A_band / A_V
+    wd_cooling: WdCoolingGrid | None = None
+    wd_atm: WdAtmosphereGrid | None = None
+    wd_stars: MSStars | None = None
+    mz_grid: torch.Tensor | None = None   # [K] precursor-mass nodes
+    ifmr_kind: str = "linear"
+    p_db: float = 0.1
     binaries: bool = True
     uniform_q: bool = False
     use_pallas: bool = True
@@ -64,6 +76,12 @@ def make_single_pop_model(
     n_q: int = 16,
     binaries: bool = True,
     uniform_q: bool = False,
+    wd_cooling: WdCoolingGrid | None = None,
+    wd_atm: WdAtmosphereGrid | None = None,
+    wd_stars: MSStars | None = None,
+    n_mz: int = 96,
+    ifmr_kind: str = "linear",
+    p_db: float = 0.1,
     use_pallas: bool = True,
     upsample: int = 1,
     *,
@@ -72,12 +90,24 @@ def make_single_pop_model(
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+    mz_grid = None
+    if wd_stars is not None:
+        if wd_cooling is None or wd_atm is None:
+            raise ValueError("wd_stars requires wd_cooling and wd_atm grids")
+        mz_grid = t(np.linspace(0.8, C.MAX_WD_PRECURSOR_MASS, n_mz,
+                                dtype=np.float32))
     return SinglePopModel(
         grid=grid,
         stars=stars,
         priors=ClusterPriors(mean=t(prior_mean), sigma=t(prior_sigma)),
         q_grid=t(np.linspace(0.0, 1.0, n_q, dtype=np.float32)),
         abs_coefs=t(filt.absorption_coefs(grid.bands)),
+        wd_cooling=wd_cooling,
+        wd_atm=wd_atm,
+        wd_stars=wd_stars,
+        mz_grid=mz_grid,
+        ifmr_kind=ifmr_kind,
+        p_db=p_db,
         binaries=binaries,
         uniform_q=uniform_q,
         use_pallas=use_pallas,
@@ -109,6 +139,13 @@ def log_lik(model: SinglePopModel, params: torch.Tensor):
             sec_iso=base_iso,
         )
     ll = lk.ms_total_loglik(model.stars, table, model.use_pallas)
+    if model.wd_stars is not None:
+        mags, _, valid = wd_mod.wd_model_mags(
+            model.grid, model.wd_cooling, model.wd_atm, params,
+            model.mz_grid, model.ifmr_kind)
+        ll = ll + wd_mod.wd_total_loglik(
+            model.wd_stars, mags, valid, model.mz_grid, mod, av,
+            model.abs_coefs, model.p_db, model.use_pallas)
     return ll, iso.in_bounds
 
 
@@ -123,10 +160,19 @@ def log_post(model: SinglePopModel, params: torch.Tensor) -> torch.Tensor:
 
 def free_mask(model: SinglePopModel) -> tuple:
     """Sampled-parameter mask for HMCConfig.free_mask: the five cluster
-    parameters; the WD-only dims are pinned in an MS-only run."""
+    parameters, plus carbonicity and the tunable IFMR coefficients with a
+    WD branch (the quadratic coefficient only for ifmr_kind 'quadratic');
+    density-flat dims are pinned."""
     m = np.zeros(C.NPARAMS, np.float32)
     m[[C.Param.AGE, C.Param.YYY, C.Param.FEH, C.Param.MOD,
        C.Param.ABS]] = 1.0
+    if model.wd_stars is not None:
+        m[C.Param.CARBONICITY] = 1.0
+        if model.ifmr_kind in ("linear", "quadratic"):
+            m[C.Param.IFMR_INTERCEPT] = 1.0
+            m[C.Param.IFMR_SLOPE] = 1.0
+        if model.ifmr_kind == "quadratic":
+            m[C.Param.IFMR_QUADCOEF] = 1.0
     return tuple(float(v) for v in m)
 
 

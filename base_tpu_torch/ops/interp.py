@@ -2,12 +2,15 @@
 
 Axes are small monotone tensors; the isochrone blend and the secondary-mass
 lookup use the gather-free hat-weight form, whose weights are
-differentiable in both the query and the axis.  Every function broadcasts
+differentiable in both the query and the axis.  The WD chain (cooling and
+atmosphere tables, the precursor-lifetime inversion) uses the corner form:
+`locate` + `multilinear` / `gather_corners` + `blend` / `interp1d`, plain
+gathers whose lerp weights carry the gradient.  Every function broadcasts
 over leading (chain) dimensions.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -23,15 +26,89 @@ class AxisLoc(NamedTuple):
 
 
 def locate(axis: torch.Tensor, x: torch.Tensor) -> AxisLoc:
-    """Find the cell of each query `x` (any shape) on the 1-D `axis`."""
-    n = axis.shape[0]
-    idx = torch.searchsorted(axis, x.contiguous(), right=True) - 1
-    idx = idx.clamp(0, n - 2)
-    lo = axis[idx]
-    hi = axis[idx + 1]
+    """Find the cell of each query on a monotone-increasing axis: a 1-D
+    `axis` [A] with queries `x` of any shape, or a batched `axis` [..., A]
+    (one axis per chain) with queries [..., K] broadcast over the same
+    leading dimensions.  A batched axis's cell ends are picked by a
+    one-hot sum rather than a gather, so that the lerp weight is
+    differentiable in the axis with a deterministic backward (a gather's
+    backward on CUDA is an atomic scatter-add)."""
+    n = axis.shape[-1]
+    if axis.ndim == 1:
+        idx = torch.searchsorted(axis, x.contiguous(), right=True) - 1
+        idx = idx.clamp(0, n - 2)
+        lo, hi = axis[idx], axis[idx + 1]
+        first, last = axis[0], axis[-1]
+    else:
+        x = x.expand(axis.shape[:-1] + x.shape[-1:])
+        idx = torch.searchsorted(axis.contiguous(), x.contiguous(),
+                                 right=True) - 1
+        idx = idx.clamp(0, n - 2)
+        pos = torch.arange(n, device=axis.device)
+        rows = axis.unsqueeze(-2)                             # [..., 1, A]
+        zero = torch.zeros((), dtype=axis.dtype, device=axis.device)
+        lo = torch.where(pos == idx[..., None], rows, zero).sum(-1)
+        hi = torch.where(pos == idx[..., None] + 1, rows, zero).sum(-1)
+        first, last = axis[..., :1], axis[..., -1:]
     frac = ((x - lo) / (hi - lo)).clamp(0.0, 1.0)
-    inside = (x >= axis[0]) & (x <= axis[-1])
+    inside = (x >= first) & (x <= last)
     return AxisLoc(idx, frac, inside)
+
+
+def gather_corners(axes: Sequence[torch.Tensor],
+                   point: Sequence[torch.Tensor]):
+    """(corner index tuples, corner weights, in_bounds) of the 2^k cell
+    corners of each query on the tensor-product grid of k 1-D `axes`.  The
+    k query tensors broadcast against each other; every index, weight and
+    the flag have their broadcast shape."""
+    point = torch.broadcast_tensors(*point)
+    k = len(axes)
+    locs = [locate(a, p) for a, p in zip(axes, point)]
+    inside = locs[0].inside
+    for loc in locs[1:]:
+        inside = inside & loc.inside
+    corners, weights = [], []
+    for corner in range(1 << k):
+        corners.append(tuple(locs[d].idx + ((corner >> d) & 1)
+                             for d in range(k)))
+        w = 1.0
+        for d in range(k):
+            t = locs[d].frac
+            w = w * (t if (corner >> d) & 1 else 1.0 - t)
+        weights.append(w)
+    return corners, weights, inside
+
+
+def blend(corners, weights, values: torch.Tensor) -> torch.Tensor:
+    """Blend `values` [n_0, ..., n_{k-1}, *payload] over precomputed
+    corners and weights: query shape + payload."""
+    out = None
+    for idx, w in zip(corners, weights):
+        w = w.reshape(w.shape + (1,) * (values.ndim - len(idx)))
+        term = values[idx] * w
+        out = term if out is None else out + term
+    return out
+
+
+def multilinear(axes: Sequence[torch.Tensor], values: torch.Tensor,
+                point: Sequence[torch.Tensor]):
+    """Multilinear interpolation of `values` [n_0, ..., n_{k-1},
+    *payload] at the queries `point` (k broadcastable tensors), clamped to
+    the hull.  Returns (query shape + payload, in_bounds)."""
+    corners, weights, inside = gather_corners(axes, point)
+    return blend(corners, weights, values), inside
+
+
+def interp1d(x_axis: torch.Tensor, y: torch.Tensor,
+             xq: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interpolation with boundary clamping: y [A,
+    *payload] on the monotone `x_axis` ([A], or [..., A] per chain as in
+    `locate`) at the queries xq -> xq's (broadcast) shape + payload."""
+    loc = locate(x_axis, xq)
+    lo = y[loc.idx]
+    hi = y[loc.idx + 1]
+    t = loc.frac.reshape(loc.frac.shape + (1,) * (y.ndim - 1))
+    return lo + (hi - lo) * t
 
 
 def hat_weight_matrix(x_axis: torch.Tensor, xq: torch.Tensor,

@@ -5,10 +5,11 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from base_tpu_torch/csrc (nvcc, sm_90a,
-into base_tpu_torch/_build/) and drives the config-1 main path of bench.py
-through the port: a 100-star simulated cluster with binaries and the field
-mixture, its log posterior and gradient, and dense-metric HMC over 64
-chains with step-size jitter and l_max 48.  Phases:
+into base_tpu_torch/_build/) and drives two paths through the port.
+Config 1 is the main path of bench.py: a 100-star simulated cluster with
+binaries and the field mixture, its log posterior and gradient, and
+dense-metric HMC over 64 chains with step-size jitter and l_max 48.
+Phases:
 
 1. the device, the toolchain and the kernel build time;
 2. each of the four kernels against its plain PyTorch version on the card,
@@ -25,10 +26,24 @@ chains with step-size jitter and l_max 48.  Phases:
 6. one torch.profiler pass over a few density + gradient calls at each
    shape: the device's busy share and each kernel's share of device time.
 
+Config 3 (BASELINE.json config 3, benchmarks/wd_ifmr_tpu.py's settings) is
+the white-dwarf path: 512 simulated stars of which ~40 are WDs, a tunable
+linear IFMR, eight free parameters, upsample 4 and 96 precursor-mass nodes,
+16 chains.  Its WD marginal runs through kernels 3 and 4 on a concatenated
+DA + DB segment table (T = 190), so they launch twice per evaluation.
+Phases 7a-7e (`run_config3`): 7a kernels 3 and 4 against their plain
+versions at its MS and WD shapes, a fully masked WD chain among them; 7b
+log_post and its gradient, card against CPU, and bit for bit; 7c chunked
+HMC (launches counted over this phase alone); 7d sample_wd_masses on
+thinned draws against the simulated ZAMS masses; 7e the density's wall
+and device time per call, its busy share, and kernels 3 and 4 at the WD
+shapes against their bound.
+
 The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
-that the per-kernel JSON.  Without a CUDA device it exits non-zero before
-printing any result.  It imports nothing of JAX.
+that the per-kernel JSON (config 3's launches and WD-shape numbers as
+extra fields).  Without a CUDA device it exits non-zero before printing
+any result.  It imports nothing of JAX.
 
     python3 chip_smoke.py --times-only [--root DIR]
 
@@ -142,18 +157,19 @@ def make_model(data, device, upsample=1):
                                       device=device)
 
 
-def chain_points(model, spread: float, seed: int) -> torch.Tensor:
+def chain_points(model, spread: float, seed: int, truth=TRUTH,
+                 n_chains: int = N_CHAINS, free=FREE) -> torch.Tensor:
     """[C, 9] unconstrained points: chain 0 at the truth, the rest
     scattered around it in the free dims."""
     from base_tpu_torch.model import posterior as post
 
     tr = post.default_transform(model)
     dev = tr.lo.device
-    z0 = tr.inverse(torch.as_tensor(TRUTH, device=dev))
+    z0 = tr.inverse(torch.as_tensor(truth, device=dev))
     gen = torch.Generator().manual_seed(seed)
-    noise = spread * torch.randn(N_CHAINS, 9, generator=gen).to(dev)
+    noise = spread * torch.randn(n_chains, 9, generator=gen).to(dev)
     noise[0] = 0.0
-    return z0 + noise * torch.as_tensor(FREE, dtype=torch.float32,
+    return z0 + noise * torch.as_tensor(free, dtype=torch.float32,
                                         device=dev)
 
 
@@ -188,10 +204,62 @@ def grad_errs(names, got, want) -> tuple[float, float, str]:
     return abs_e, scaled, " ".join(report)
 
 
+def check_marglik(marg_in, label: str) -> dict:
+    """Kernels 3 and 4 against their plain versions (and the plain version
+    in float64) on the same CUDA inputs; returns ({kernel: max abs error},
+    {kernel: checked error}) and raises past MARGLIK_TOL."""
+    from base_tpu_torch.ops import marglik as ml
+
+    gen = torch.Generator(device=marg_in[0].device).manual_seed(7)
+    abs_errs, checked = {}, {}
+    out_k = ml.marglik_fwd_cuda(*marg_in)
+    out_p = ml.marglik_fwd_plain(*marg_in)
+    marg64 = tuple(t.double() for t in marg_in)
+    out_64 = ml.marglik_fwd_plain(*marg64)
+    sel = out_p > -200
+    abs_errs["marglik_fwd"] = checked["marglik_fwd"] = float(
+        (out_k - out_p).abs()[sel].max())
+    f64 = {"marglik_fwd": (float((out_k - out_64).abs()[sel].max()),
+                           float((out_p - out_64).abs()[sel].max()))}
+    gs = torch.randn(out_p.shape, generator=gen, device=out_p.device)
+    bwd_k = ml.marglik_bwd_cuda(*marg_in, out_p, gs)
+    bwd_p = ml.marglik_bwd_plain(*marg_in, out_p, gs)
+    bwd_64 = ml.marglik_bwd_plain(*marg64, out_64, gs.double())
+    names = ("dlo", "dhi", "dlogw")
+    abs_errs["marglik_bwd"], checked["marglik_bwd"], report = grad_errs(
+        names, bwd_k, bwd_p)
+    f64["marglik_bwd"] = (grad_errs(names, bwd_k, bwd_64)[1],
+                          grad_errs(names, bwd_p, bwd_64)[1])
+    C, T = marg_in[3].shape[:2]
+    log(f"  [{label}] marglik C={C} S={marg_in[0].shape[0]} T={T}: fwd "
+        f"max|err| {checked['marglik_fwd']:.3e} ({int(sel.sum())}/"
+        f"{sel.numel()} values > -200); bwd abs/scaled {report}")
+    for name, (k64, p64) in f64.items():
+        log(f"  [{label}] {name} vs float64: kernel {k64:.3e}, "
+            f"plain float32 {p64:.3e}")
+        if not k64 <= MARGLIK_TOL:
+            raise AssertionError(f"{name} [{label}]: {k64:.3e} from float64")
+    # A chain with no live segment: exactly NEG_INF + log_norm, and no
+    # gradient at all.
+    dead = (marg_in[6] <= 0.5).all(1)
+    if dead.any():
+        if not torch.equal(out_k[dead], ml.NEG_INF + marg_in[2].expand(
+                int(dead.sum()), -1)):
+            raise AssertionError(f"[{label}] masked chain's marginal")
+        if not all(bool((d[dead] == 0).all()) for d in bwd_k):
+            raise AssertionError(f"[{label}] masked chain's gradient")
+        log(f"  [{label}] {int(dead.sum())} chain(s) with every segment "
+            f"masked: marginal NEG_INF + log_norm, gradients exactly 0")
+    for name, err in checked.items():
+        if not err <= MARGLIK_TOL:
+            raise AssertionError(f"{name} [{label}]: error {err:.3e} > "
+                                 f"{MARGLIK_TOL}")
+    return abs_errs
+
+
 def check_kernels(model, z, label: str) -> dict:
     """Each kernel against its plain version on the same CUDA inputs;
     returns {kernel: max abs error} and raises past the tolerances."""
-    from base_tpu_torch.ops import marglik as ml
     from base_tpu_torch.ops import table as tb
 
     table_in, marg_in = kernel_inputs(model, z)
@@ -209,39 +277,11 @@ def check_kernels(model, z, label: str) -> dict:
         tb.table_bwd_cuda(*table_in, g), tb.table_bwd_plain(*table_in, g))
     log(f"  [{label}] table N={comb_p.shape[2]}: fwd max|err| "
         f"{checked['table_fwd']:.3e}; bwd abs/scaled {report}")
-
-    out_k = ml.marglik_fwd_cuda(*marg_in)
-    out_p = ml.marglik_fwd_plain(*marg_in)
-    marg64 = tuple(t.double() for t in marg_in)
-    out_64 = ml.marglik_fwd_plain(*marg64)
-    sel = out_p > -200
-    abs_errs["marglik_fwd"] = checked["marglik_fwd"] = float(
-        (out_k - out_p).abs()[sel].max())
-    f64 = {"marglik_fwd": (float((out_k - out_64).abs()[sel].max()),
-                           float((out_p - out_64).abs()[sel].max()))}
-    gs = torch.randn(out_p.shape, generator=gen, device=z.device)
-    bwd_k = ml.marglik_bwd_cuda(*marg_in, out_p, gs)
-    bwd_p = ml.marglik_bwd_plain(*marg_in, out_p, gs)
-    bwd_64 = ml.marglik_bwd_plain(*marg64, out_64, gs.double())
-    names = ("dlo", "dhi", "dlogw")
-    abs_errs["marglik_bwd"], checked["marglik_bwd"], report = grad_errs(
-        names, bwd_k, bwd_p)
-    f64["marglik_bwd"] = (grad_errs(names, bwd_k, bwd_64)[1],
-                          grad_errs(names, bwd_p, bwd_64)[1])
-    log(f"  [{label}] marglik T={marg_in[3].shape[1]}: fwd max|err| "
-        f"{checked['marglik_fwd']:.3e} ({int(sel.sum())}/{sel.numel()} "
-        f"values > -200); bwd abs/scaled {report}")
-    for name, (k64, p64) in f64.items():
-        log(f"  [{label}] {name} vs float64: kernel {k64:.3e}, "
-            f"plain float32 {p64:.3e}")
-        if not k64 <= MARGLIK_TOL:
-            raise AssertionError(f"{name} [{label}]: {k64:.3e} from float64")
-
     for name, err in checked.items():
-        tol = (MARGLIK_TOL if name.startswith("marglik")
-               else FWD_TOL if name.endswith("fwd") else GRAD_TOL)
+        tol = FWD_TOL if name.endswith("fwd") else GRAD_TOL
         if not err <= tol:
             raise AssertionError(f"{name} [{label}]: error {err:.3e} > {tol}")
+    abs_errs.update(check_marglik(marg_in, label))
     return abs_errs
 
 
@@ -292,21 +332,34 @@ def reset_launch_counts() -> None:
     ml.marglik_fwd_launches = ml.marglik_bwd_launches = 0
 
 
-def run_hmc(model) -> dict:
-    """The main path: chunked dense-metric HMC on the card."""
+PARAM_NAMES = ("logAge", "Y", "FeH", "mod", "Av", "carbonicity",
+               "ifmrIntercept", "ifmrSlope", "ifmrQuadCoef")
+
+
+def run_hmc(model, truth=TRUTH, n_chains: int = N_CHAINS, free=FREE,
+            n_warmup: int = 128, n_samples: int = 128, n_windows: int = 4,
+            rhat_max: float | None = 1.1, report=(0,)):
+    """The main path: chunked dense-metric HMC on the card, l_max 48 and
+    step jitter, from near the truth.  Returns (results, constrained draws
+    [n_samples, C, 9]); asserts finite draws, an acceptance in (0, 1),
+    every kernel launched, the age within 0.15 dex of the truth and (with
+    rhat_max) split R-hat of the age below it.  `report` lists the
+    parameters whose posterior mean and sd are printed beside the
+    truth."""
     from base_tpu_torch.inference import diagnostics as diag
     from base_tpu_torch.inference.driver import make_hmc_chunked_runner
     from base_tpu_torch.inference.hmc import HMCConfig
     from base_tpu_torch.model import posterior as post
 
-    cfg = HMCConfig(n_warmup=128, n_samples=128, l_max=48, n_windows=4,
-                    dense_mass=True, free_mask=FREE, jitter_mode="step")
+    cfg = HMCConfig(n_warmup=n_warmup, n_samples=n_samples, l_max=48,
+                    n_windows=n_windows, dense_mass=True, free_mask=free,
+                    jitter_mode="step")
     tr = post.default_transform(model)
     fz = post.make_logpost_z_fn(model, tr)
     dev = tr.lo.device
-    z0 = tr.inverse(torch.as_tensor(TRUTH, device=dev))
+    z0 = tr.inverse(torch.as_tensor(truth, device=dev))
     init = z0 + 0.02 * torch.randn(
-        N_CHAINS, 9, generator=torch.Generator().manual_seed(2)).to(dev)
+        n_chains, 9, generator=torch.Generator().manual_seed(2)).to(dev)
     runner = make_hmc_chunked_runner(fz, cfg, chunk_draws=64)
     gen = torch.Generator(device=dev).manual_seed(4)
 
@@ -320,7 +373,7 @@ def run_hmc(model) -> dict:
 
     xs = tr.forward(zs)                                  # [N, C, 9]
     accept = float(info["accept_prob"])
-    evals = (cfg.n_warmup + cfg.n_samples) * cfg.l_max * N_CHAINS
+    evals = (cfg.n_warmup + cfg.n_samples) * cfg.l_max * n_chains
     res = dict(
         wall_s=wall,
         evals_per_s=evals / wall,
@@ -330,6 +383,10 @@ def run_hmc(model) -> dict:
         rhat_age=float(diag.split_rhat(xs[:, :, :1])[0]),
         mean_age=float(xs[:, :, 0].mean()),
         sd_age=float(xs[:, :, 0].std()),
+        posterior={PARAM_NAMES[i]: dict(mean=float(xs[:, :, i].mean()),
+                                        sd=float(xs[:, :, i].std()),
+                                        truth=float(truth[i]))
+                   for i in report},
         launches=counts,
     )
     log("  " + json.dumps(res))
@@ -341,10 +398,12 @@ def run_hmc(model) -> dict:
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     # The simulated truth is recovered: age within 0.15 dex (posterior sd
-    # ~0.03 at 100 stars) and the chains mixed.
-    if not (abs(res["mean_age"] - TRUTH[0]) < 0.15 and res["rhat_age"] < 1.1):
+    # ~0.03 at 100 stars) and, where asked, the chains mixed.
+    if not abs(res["mean_age"] - truth[0]) < 0.15:
         raise AssertionError("HMC posterior misses the simulated truth")
-    return res
+    if rhat_max is not None and not res["rhat_age"] < rhat_max:
+        raise AssertionError(f"split R-hat of age {res['rhat_age']:.3f}")
+    return res, xs
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -401,22 +460,13 @@ def time_pair(name, kernel, plain) -> tuple[float, float, float | None]:
             device_ms(kernel, KERNEL_SYMBOLS[name]))
 
 
-def time_kernels(model, z) -> dict:
+def time_marglik(marg_in) -> dict:
+    """Kernels 3 and 4 timed against their plain versions (time_pair)."""
     from base_tpu_torch.ops import marglik as ml
-    from base_tpu_torch.ops import table as tb
 
-    table_in, marg_in = kernel_inputs(model, z)
-    comb = tb.table_fwd_plain(*table_in)
-    g = torch.ones_like(comb)
     out = ml.marglik_fwd_plain(*marg_in)
     gs = torch.ones_like(out)
     return {
-        "table_fwd": time_pair("table_fwd",
-                               lambda: tb.table_fwd_cuda(*table_in),
-                               lambda: tb.table_fwd_plain(*table_in)),
-        "table_bwd": time_pair("table_bwd",
-                               lambda: tb.table_bwd_cuda(*table_in, g),
-                               lambda: tb.table_bwd_plain(*table_in, g)),
         "marglik_fwd": time_pair("marglik_fwd",
                                  lambda: ml.marglik_fwd_cuda(*marg_in),
                                  lambda: ml.marglik_fwd_plain(*marg_in)),
@@ -424,6 +474,23 @@ def time_kernels(model, z) -> dict:
             "marglik_bwd",
             lambda: ml.marglik_bwd_cuda(*marg_in, out, gs),
             lambda: ml.marglik_bwd_plain(*marg_in, out, gs)),
+    }
+
+
+def time_kernels(model, z) -> dict:
+    from base_tpu_torch.ops import table as tb
+
+    table_in, marg_in = kernel_inputs(model, z)
+    comb = tb.table_fwd_plain(*table_in)
+    g = torch.ones_like(comb)
+    return {
+        "table_fwd": time_pair("table_fwd",
+                               lambda: tb.table_fwd_cuda(*table_in),
+                               lambda: tb.table_fwd_plain(*table_in)),
+        "table_bwd": time_pair("table_bwd",
+                               lambda: tb.table_bwd_cuda(*table_in, g),
+                               lambda: tb.table_bwd_plain(*table_in, g)),
+        **time_marglik(marg_in),
     }
 
 
@@ -465,6 +532,38 @@ def skip_shares(marg_in) -> dict | None:
         warp_skip_share=1.0 - float(groups(need).sum()) / max(pairs, 1))
 
 
+def marglik_work(marg_in) -> dict:
+    """{kernel: (flops, bytes)} of kernels 3 and 4 on these inputs (see
+    kernel_work), with kernel 4's dense count and its skip shares."""
+    S, B = marg_in[0].shape
+    C, T = marg_in[3].shape[:2]
+    live = S * int((marg_in[6] > 0.5).sum())        # (chain, star, segment)
+    skips = skip_shares(marg_in)
+    f = 4                                           # bytes per float
+    marg_in_bytes = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
+    marg_bwd_bytes = (marg_in_bytes + f * 2 * C * S
+                      + f * (2 * C * T * B + C * T))
+    return {
+        # Per live element: band contraction 11B, core_width and
+        # phi_interval_scaled ~100, online update 5.
+        "marglik_fwd": (live * (11 * B + 105), marg_in_bytes + f * C * S),
+        # Per (group, star) pair with a live segment: the group rule,
+        # 20B + 10.  Per element the group rule leaves: the band
+        # contraction 11B and the element rule 20, and where that keeps
+        # it, the forward's 100, moments and softmax weight ~38 and the
+        # cotangents 14B.
+        # (A checkout without the rules is counted as below.)
+        "marglik_bwd": ((skips["pairs"] * (20 * B + 10)
+                         + skips["contracted"] * (11 * B + 20)
+                         + skips["kept"] * (25 * B + 158)) if skips
+                        else live * (25 * B + 138), marg_bwd_bytes),
+        # Every live element at the full cost, the count from before the
+        # skip rules, so that older bounds stay comparable.
+        "marglik_bwd_dense": (live * (25 * B + 138), marg_bwd_bytes),
+        "marglik_bwd_skip": skips,
+    }
+
+
 def kernel_work(model, z) -> dict:
     """{kernel: (flops, bytes)} that each kernel needs on the main path's
     inputs at points z.  Bytes: each input read once, each output written
@@ -483,15 +582,8 @@ def kernel_work(model, z) -> dict:
     w, up, dn = tb._weights(m2, *table_in[4:])
     nnz = int(((w != 0) | (up * (1 - up) != 0) | (dn * (1 - dn) != 0))
               .sum())
-    S = marg_in[0].shape[0]
-    T = marg_in[3].shape[1]
-    live = S * int((marg_in[6] > 0.5).sum())        # (chain, star, segment)
-    skips = skip_shares(marg_in)
     f = 4                                           # bytes per float
     table_io = f * (C * B * N + 2 * C * N + C * B * E2 + 4 * C * E2)
-    marg_in_bytes = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
-    marg_bwd_bytes = (marg_in_bytes + f * 2 * C * S
-                      + f * (2 * C * T * B + C * T))
     return {
         # Per non-zero entry: 2 ramps + 2 smoothsteps + weight (18), B FMAs;
         # per (node, band): 2 exp, the flux sum, log (8).
@@ -501,23 +593,7 @@ def kernel_work(model, z) -> dict:
         # (22 + 2B), the node sums (38 + 4B); per (node, band) 15.
         "table_bwd": (nnz * (78 + 8 * B) + 15 * C * B * N,
                       table_io + f * C * B * N + table_io),
-        # Per live element: band contraction 11B, core_width and
-        # phi_interval_scaled ~100, online update 5.
-        "marglik_fwd": (live * (11 * B + 105), marg_in_bytes + f * C * S),
-        # Per (group, star) pair with a live segment: the group rule,
-        # 20B + 10.  Per element the group rule leaves: the band
-        # contraction 11B and the element rule 20, and where that keeps
-        # it, the forward's 100, moments and softmax weight ~38 and the
-        # cotangents 14B.
-        # (A checkout without the rules is counted as below.)
-        "marglik_bwd": ((skips["pairs"] * (20 * B + 10)
-                         + skips["contracted"] * (11 * B + 20)
-                         + skips["kept"] * (25 * B + 158)) if skips
-                        else live * (25 * B + 138), marg_bwd_bytes),
-        # Every live element at the full cost, the count from before the
-        # skip rules, so that older bounds stay comparable.
-        "marglik_bwd_dense": (live * (25 * B + 138), marg_bwd_bytes),
-        "marglik_bwd_skip": skips,
+        **marglik_work(marg_in),
     }
 
 
@@ -585,7 +661,7 @@ def density_walls(models: dict, z) -> dict:
     for label, model in models.items():
         vg = density_fn(model)
         walls[label] = cuda_ms(lambda: vg(z))
-        log(f"  log_post + gradient [{label}], {N_CHAINS} chains: "
+        log(f"  log_post + gradient [{label}], {z.shape[0]} chains: "
             f"{walls[label]:.3f} ms")
     return walls
 
@@ -630,6 +706,190 @@ def kernel_report(model, model_up4, z) -> dict:
             f"({bound_up4:.5f} by {by_up4}); share of bound {share:.4f} "
             f"({share4:.4f})")
     return report
+
+
+# Config 3 (BASELINE.json config 3, benchmarks/wd_ifmr_tpu.py:45-107): a
+# cluster whose heavy stars are WDs, fitted in all eight WD-model dims with a
+# tunable linear IFMR, then per-WD precursor masses and cooling ages drawn
+# from the posterior (sampleWDMass).
+TRUTH3 = np.array([9.3, 0.27, -0.5, 10.0, 0.3, 0.5, 0.7, 0.08, 0.0],
+                  np.float32)
+PRIOR_SIGMA3 = np.array([-1, -1, 0.3, 0.2, 0.1, 0.1, 0.3, 0.15, -1],
+                        np.float32)
+N_CHAINS3, N_STARS3, N_MZ3, UPSAMPLE3 = 16, 512, 96, 4
+# A short run (the benchmark takes 768 + 3072): one density + gradient call
+# of config 3 takes ~29 ms on the card, host-bound, so 192 x 48 calls keep
+# the whole script near half its time limit.
+N_WARMUP3, N_SAMPLES3 = 128, 64
+
+
+def make_data3():
+    """Config-3 photometry through the port's simulator (WD branch, linear
+    IFMR, 10% DB, 30% binaries) and noise model, on the CPU from fixed
+    seeds: ((MS mags, sigmas), (WD mags, sigmas), the WDs' true ZAMS
+    masses)."""
+    from base_tpu_torch import constants as C
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.grids.wd_atmosphere import synthetic_bergeron
+    from base_tpu_torch.grids.wd_cooling import synthetic_wd_cooling
+    from base_tpu_torch.sim.scatter import scatter_cluster
+    from base_tpu_torch.sim.simulate import simulate_cluster
+
+    grid = synthetic.make_grid(n_eep=N_EEP, device="cpu")
+    gen = torch.Generator().manual_seed(10)
+    cat = simulate_cluster(
+        grid, torch.as_tensor(TRUTH3), N_STARS3, gen, percent_binary=0.3,
+        wd_cooling=synthetic_wd_cooling(device="cpu"),
+        wd_atm=synthetic_bergeron(device="cpu"), ifmr_kind="linear",
+        percent_db=0.1)
+    sc = scatter_cluster(cat.mags, gen, limit_mag=24.0)
+    wd = (cat.stage == C.StarStatus.WD).numpy()
+    mags, sig = sc.mags.numpy(), sc.sigmas.numpy()
+    return ((mags[~wd], sig[~wd]), (mags[wd], sig[wd]),
+            cat.mass1.numpy()[wd])
+
+
+def make_model3(data3, device):
+    """The config-3 model (wd_ifmr_tpu.py:74-83): n_q 8, upsample 4, 96
+    precursor nodes, linear IFMR, 10% DB."""
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.grids.wd_atmosphere import synthetic_bergeron
+    from base_tpu_torch.grids.wd_cooling import synthetic_wd_cooling
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.model.stardata import make_ms_stars
+
+    ms, wd, _ = data3
+    return post.make_single_pop_model(
+        synthetic.make_grid(n_eep=N_EEP, device=device),
+        make_ms_stars(*ms, cm_prior=0.99, device=device), TRUTH3,
+        PRIOR_SIGMA3, n_q=N_Q,
+        wd_cooling=synthetic_wd_cooling(device=device),
+        wd_atm=synthetic_bergeron(device=device),
+        wd_stars=make_ms_stars(*wd, cm_prior=0.99, device=device),
+        n_mz=N_MZ3, ifmr_kind="linear", p_db=0.1, upsample=UPSAMPLE3,
+        device=device)
+
+
+def config3_points(model) -> torch.Tensor:
+    """[16, 9] unconstrained points around the config-3 truth in its free
+    dims; the last chain's IFMR intercept is -3 Msun, which leaves every
+    WD node invalid (a fully masked WD table)."""
+    from base_tpu_torch import constants as C
+    from base_tpu_torch.model import posterior as post
+
+    tr = post.default_transform(model)
+    z = chain_points(model, 0.05, seed=11, truth=TRUTH3,
+                     n_chains=N_CHAINS3, free=post.free_mask(model))
+    x = tr.forward(z)
+    x[-1, C.Param.IFMR_INTERCEPT] = -3.0
+    return tr.inverse(x)
+
+
+def wd_marglik_inputs(model, z):
+    """Kernels 3 and 4's inputs on the WD branch at points z, as log_post
+    builds them (model.wd)."""
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.model import wd
+
+    x = post.default_transform(model).forward(z)
+    mags, _, valid = wd.wd_model_mags(model.grid, model.wd_cooling,
+                                      model.wd_atm, x, model.mz_grid,
+                                      model.ifmr_kind)
+    table = wd.wd_segment_table(mags, valid, model.mz_grid, x[:, 3], x[:, 4],
+                                model.abs_coefs, model.p_db)
+    st = model.wd_stars
+    return (st.obs_mags, st.inv_var, st.log_norm, table.lo.contiguous(),
+            table.hi.contiguous(), table.logw.contiguous(),
+            table.mask.float())
+
+
+def wd_conditionals(model, xs, true_zams) -> dict:
+    """sampleWDMass on every 64th posterior draw (wd_ifmr_tpu.py:245-265):
+    wall time, and the per-WD posterior-mean ZAMS mass against the
+    simulated truth (RMSE, and the share within 2.5 sd + 0.05 Msun)."""
+    from base_tpu_torch.model import conditionals as cond
+
+    draws = xs.reshape(-1, 9)[::64].contiguous()
+    gen = torch.Generator(device=draws.device).manual_seed(9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cond.sample_wd_masses(model, draws, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    zm = out.zams_mass.double().cpu().numpy()
+    err = zm.mean(0) - true_zams
+    cover = np.abs(err) < 2.5 * zm.std(0) + 0.05
+    res = dict(draws=int(draws.shape[0]), wds=int(zm.shape[1]), wall_s=wall,
+               zams_mass_rmse=float(np.sqrt((err ** 2).mean())),
+               zams_mass_cover_2p5sd=float(cover.mean()),
+               wd_mass_mean=float(out.wd_mass.mean()),
+               db_share=float(out.is_db.float().mean()),
+               p_member_mean=float(out.p_member.mean()))
+    log("  sample_wd_masses " + json.dumps(res))
+    if not all(bool(torch.isfinite(t).all()) for t in
+               (out.zams_mass, out.wd_mass, out.log_cool_age, out.log_marg)):
+        raise AssertionError("non-finite WD conditionals")
+    return res
+
+
+def run_config3(dev, baseline=None) -> dict:
+    """Config 3's phases, after config 1's: (a) kernels 3 and 4 against
+    their plain versions at the MS and WD shapes, a fully masked WD chain
+    among them; (b) log_post + gradient, card against the CPU plain path,
+    and twice bit for bit; (c) chunked dense-metric HMC, the launches
+    counted over this phase alone; (d) sample_wd_masses on thinned draws;
+    (e) the density's wall and device time per call, the busy share, and
+    kernels 3 and 4 at the WD shapes against their bound.  `baseline`, a
+    (model, points) pair of config 1, is timed beside config 3's density
+    in (e)."""
+    from base_tpu_torch.model import posterior as post
+
+    data3 = make_data3()
+    model = make_model3(data3, dev)
+    log(f"config 3: {data3[0][0].shape[0]} MS stars, {data3[1][0].shape[0]}"
+        f" WDs, {N_CHAINS3} chains, free {post.free_mask(model)}")
+    z = config3_points(model)
+
+    log("phase 7a: kernels 3 and 4 vs plain at the config-3 shapes")
+    _, ms_in = kernel_inputs(model, z)
+    wd_in = wd_marglik_inputs(model, z)
+    errs = {"ms": check_marglik(ms_in, "config 3 MS"),
+            "wd": check_marglik(wd_in, "config 3 WD")}
+
+    log("phase 7b: log_post + gradient, card vs CPU")
+    check_density(model, make_model3(data3, "cpu"), z)
+
+    log(f"phase 7c: chunked HMC, {N_CHAINS3} chains, dense metric, "
+        f"l_max 48, 6 windows, {N_WARMUP3} + {N_SAMPLES3} draws")
+    hmc, xs = run_hmc(model, TRUTH3, N_CHAINS3, post.free_mask(model),
+                      n_warmup=N_WARMUP3, n_samples=N_SAMPLES3, n_windows=6,
+                      rhat_max=None, report=(0, 6, 7))
+
+    log("phase 7d: sample_wd_masses")
+    cond = wd_conditionals(model, xs, data3[2])
+
+    log("phase 7e: density time and kernels 3 and 4 at the WD shapes")
+    wall = density_walls({"config 3": model}, z)["config 3"]
+    if baseline is not None:
+        density_walls({"config 1, upsample 4": baseline[0]}, baseline[1])
+    shares = device_shares(model, z, "config 3", wall)
+    times = time_marglik(wd_in)
+    work = marglik_work(wd_in)
+    wd_kernels = {}
+    for name, (ms, plain_ms, dev_ms) in times.items():
+        bound_ms, bound_by = bound(*work[name])
+        wd_kernels[name] = dict(
+            ms_wd=ms, plain_ms_wd=plain_ms, device_ms_wd=dev_ms,
+            bound_ms_wd=bound_ms, bound_by_wd=bound_by,
+            max_abs_err_wd=errs["wd"][name],
+            max_abs_err_config3_ms=errs["ms"][name])
+        log(f"  {name} at the WD shapes: kernel {ms:.4f} ms, device "
+            f"{dev_ms} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms "
+            f"by {bound_by}")
+    log("  marglik_bwd skip rule at the WD shapes: "
+        + json.dumps(work["marglik_bwd_skip"]))
+    return dict(hmc=hmc, conditionals=cond, wall_ms=wall, shares=shares,
+                wd_kernels=wd_kernels)
 
 
 def kernel_outputs(models: dict, z) -> dict:
@@ -743,7 +1003,7 @@ def main() -> None:
 
     # 4. HMC, the main path.
     log("phase 4: chunked HMC, 64 chains, dense metric, l_max 48")
-    hmc_res = run_hmc(model)
+    hmc_res, _ = run_hmc(model)
 
     # 5. Kernel times vs plain and vs their bounds, at both shapes.
     log("phase 5: kernel times (CUDA events) and bounds")
@@ -755,6 +1015,10 @@ def main() -> None:
     for label, m in models.items():
         device_shares(m, z, label, walls[label])
 
+    # 7a-7e. Config 3: the WD branch through kernels 3 and 4.
+    c3 = run_config3(torch.device("cuda", 0),
+                     baseline=(model_up4, z[:N_CHAINS3]))
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report[name]
@@ -765,7 +1029,9 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=None,
             roofline_share=r["roofline_share"], ms_up4=r["ms_up4"],
             device_ms=r["device_ms"], device_ms_up4=r["device_ms_up4"],
-            **{k: r[k] for k in ("bound_ms_dense",) if k in r}))
+            **{k: r[k] for k in ("bound_ms_dense",) if k in r},
+            launches_config3=c3["hmc"]["launches"][name],
+            **c3["wd_kernels"].get(name, {})))
         if not all(math.isfinite(kernels[-1][k]) for k in
                    ("ms", "plain_ms", "bound_ms", "ms_up4")):
             raise AssertionError(f"{name}: a time is not finite")

@@ -219,3 +219,110 @@ def test_wrappers_refuse_bad_inputs(cuda):
     args[5] = args[5].double()
     with pytest.raises(ValueError, match="float32"):
         ml.marglik_fwd_cuda(*args)
+
+
+def _wd_marglik_inputs(dev, mz, C=16, S=38, seed=0):
+    """Kernels 3 and 4's inputs on the WD branch of config 3: the
+    concatenated DA + DB segment table over the precursor nodes `mz` (T = 2
+    (K - 1)) on the synthetic grids for C chains around the config-3
+    truth, the last chain with an IFMR that leaves every node invalid.  Of
+    the S WDs, observed with 0.01-0.05 mag errors, two thirds sit near
+    chain 0's valid nodes and a third before its first valid segment (mu
+    well below 0 on that steep segment)."""
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.grids.filters import absorption_coefs
+    from base_tpu_torch.grids.wd_atmosphere import synthetic_bergeron
+    from base_tpu_torch.grids.wd_cooling import synthetic_wd_cooling
+    from base_tpu_torch.model import wd
+
+    rng = np.random.default_rng(seed)
+    grid = synthetic.make_grid(n_eep=64, device=dev)
+    truth = np.array([9.3, 0.27, -0.5, 10.0, 0.3, 0.5, 0.7, 0.08, 0.0])
+    p = np.tile(truth, (C, 1))
+    p[1:, :8] += rng.normal(0, [0.02, 0.005, 0.02, 0.02, 0.01, 0.05, 0.01,
+                                0.005], (C - 1, 8))
+    p[-1, 6] = -3.0
+    p = torch.as_tensor(p, dtype=torch.float32, device=dev)
+    mz = torch.as_tensor(mz, dtype=torch.float32, device=dev)
+    mags, _, valid = wd.wd_model_mags(
+        grid, synthetic_wd_cooling(device=dev), synthetic_bergeron(device=dev),
+        p, mz, "linear")
+    coefs = torch.as_tensor(absorption_coefs(grid.bands), device=dev)
+    table = wd.wd_segment_table(mags, valid, mz, p[:, 3], p[:, 4], coefs)
+    app = (mags[0] + p[0, 3] + p[0, 4] * coefs).cpu().numpy()  # [2, K, B]
+    ok = np.flatnonzero(valid[0].cpu().numpy())
+    n_edge = S // 3
+    k = rng.choice(ok, S - n_edge)
+    kind = (rng.random(S) < 0.1).astype(np.int64)
+    first = app[kind[:n_edge], ok[0]]
+    step = app[kind[:n_edge], ok[0] + 1] - first
+    obs = np.concatenate([first - rng.uniform(0.5, 3.0, (n_edge, 1)) * step,
+                          app[kind[n_edge:], k]])
+    sig = rng.uniform(0.01, 0.05, (S, 8))
+    obs = obs + rng.normal(0, sig)
+    iv = 1.0 / sig**2
+    ln = (-np.log(sig) - 0.9189385332046727).sum(-1)
+    host = tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                 for a in (obs, iv, ln))
+    return (*host, table.lo.contiguous(), table.hi.contiguous(),
+            table.logw.contiguous(), table.mask.float())
+
+
+def _config3_wd_inputs(dev):
+    """chip_smoke.py's config-3 WD inputs (512 simulated stars, 40 WDs, 16
+    chains, the last one with no valid node): on these, kernel 4 once
+    computed <t> with an FMA-contracted exponent and sat 2e-2 (scaled)
+    from float64.  Run from the repository root, which holds
+    chip_smoke.py."""
+    import chip_smoke
+
+    model = chip_smoke.make_model3(chip_smoke.make_data3(), dev)
+    return chip_smoke.wd_marglik_inputs(model,
+                                        chip_smoke.config3_points(model))
+
+
+WD_TABLES = {
+    "config3": _config3_wd_inputs,
+    "synthetic_K96": lambda dev: _wd_marglik_inputs(
+        dev, np.linspace(0.8, 8.0, 96)),
+    # One DA and one DB segment (T = 2) between 2.9 and 3.1 Msun.
+    "synthetic_K2": lambda dev: _wd_marglik_inputs(dev, [2.9, 3.1]),
+}
+
+
+@pytest.mark.parametrize("case", list(WD_TABLES))
+def test_marglik_kernels_on_wd_tables(cuda, case):
+    """Kernels 3 and 4 on config 3's WD tables (C 16, S ~40, T 190, B 8;
+    and T = 2), stars before the first valid segment among them: the
+    forward within MARGLIK_TOL of plain and of float64 where plain is
+    above -200, the backward within MARGLIK_TOL of plain and of float64;
+    on the chain with no valid node the forward is exactly NEG_INF +
+    log_norm and every gradient exactly zero."""
+    args = WD_TABLES[case](cuda)
+    want = ml.marglik_fwd_plain(*args)
+    want64 = ml.marglik_fwd_plain(*(t.double() for t in args))
+    got = ml.marglik_fwd_cuda(*args)
+    sel = want > -200
+    assert int(sel.sum()) > 0
+    assert float((got - want).abs()[sel].max()) <= MARGLIK_TOL
+    assert float((got.double() - want64).abs()[sel].max()) <= MARGLIK_TOL
+    assert bool((args[6][-1] == 0).all())
+    assert torch.equal(got[-1], ml.NEG_INF + args[2])
+    g = _randn(want.shape, cuda, seed=args[3].shape[1])
+    _check_marglik_bwd(args, g)
+    for d in ml.marglik_bwd_cuda(*args, want, g):
+        assert bool((d[-1] == 0).all()) and bool(torch.isfinite(d).all())
+
+
+def test_config3_density_deterministic(cuda):
+    """chip_smoke.py's config-3 log_post + gradient (the WD branch
+    included) on the card, twice: bit-identical (no atomic scatter in the
+    WD chain's backward).  Run from the repository root."""
+    import chip_smoke
+
+    model = chip_smoke.make_model3(chip_smoke.make_data3(), cuda)
+    z = chip_smoke.config3_points(model)
+    vg = chip_smoke.density_fn(model)
+    (lp1, g1), (lp2, g2) = vg(z), vg(z)
+    assert bool(torch.isfinite(lp1).all() and torch.isfinite(g1).all())
+    assert torch.equal(lp1, lp2) and torch.equal(g1, g2)

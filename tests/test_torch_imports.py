@@ -40,6 +40,8 @@ def test_port_constants_and_filters_equal_base_tpu():
     assert tconst.NPARAMS == jconst.NPARAMS
     assert tconst.IMF_LOG_MEAN == jconst.IMF_LOG_MEAN
     assert tconst.IMF_LOG_SIGMA == jconst.IMF_LOG_SIGMA
+    assert tconst.MBOL_SUN == jconst.MBOL_SUN
+    assert tconst.MAX_WD_PRECURSOR_MASS == jconst.MAX_WD_PRECURSOR_MASS
     for enum_name in ("Param", "StarStatus"):
         t_enum = getattr(tconst, enum_name)
         j_enum = getattr(jconst, enum_name)
