@@ -27,6 +27,19 @@ class Param(enum.IntEnum):
     IFMR_QUADCOEF = 8
 
 
+PARAM_NAMES = (
+    "logAge",
+    "Y",
+    "FeH",
+    "modulus",
+    "absorption",
+    "carbonicity",
+    "ifmrIntercept",
+    "ifmrSlope",
+    "ifmrQuadCoef",
+)
+
+
 class StarStatus(enum.IntEnum):
     """Per-star evolutionary status codes from the .phot file: MSRG = main
     sequence / red giant, WD = white dwarf, NSBH = neutron star / black

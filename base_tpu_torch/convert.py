@@ -11,7 +11,8 @@ import torch
 from base_tpu_torch.grids.isochrone import IsochroneGrid
 from base_tpu_torch.grids.wd_atmosphere import WdAtmosphereGrid
 from base_tpu_torch.grids.wd_cooling import WdCoolingGrid
-from base_tpu_torch.model.posterior import SinglePopModel
+from base_tpu_torch.model.multipop import MultiPopModel
+from base_tpu_torch.model.posterior import ClusterModel, SinglePopModel
 from base_tpu_torch.model.priors import ClusterPriors
 from base_tpu_torch.model.stardata import MSStars
 
@@ -74,11 +75,13 @@ def model_from_numpy(grid: Mapping, stars: Mapping, prior_mean, prior_sigma,
                      wd_atm: Mapping | None = None,
                      wd_stars: Mapping | None = None, mz_grid=None,
                      ifmr_kind: str = "linear", p_db: float = 0.1, *,
-                     device: torch.device | str) -> SinglePopModel:
-    """SinglePopModel from a base_tpu SinglePopModel's pieces: `grid`,
-    `stars` and, for a WD branch, `wd_cooling`, `wd_atm` and `wd_stars`
-    map field names to arrays (plus the grids' `bands` and `name`), and
-    `mz_grid` is base_tpu's precursor-mass grid."""
+                     device: torch.device | str,
+                     cls: type = SinglePopModel) -> ClusterModel:
+    """SinglePopModel (or another ClusterModel `cls`) from a base_tpu
+    model's pieces: `grid`, `stars` and, for a WD branch, `wd_cooling`,
+    `wd_atm` and `wd_stars` map field names to arrays (plus the grids'
+    `bands` and `name`), and `mz_grid` is base_tpu's precursor-mass
+    grid."""
     wd = {}
     if wd_stars is not None:
         wd = dict(
@@ -87,7 +90,7 @@ def model_from_numpy(grid: Mapping, stars: Mapping, prior_mean, prior_sigma,
             wd_stars=stars_from_numpy(**wd_stars, device=device),
             mz_grid=_t(mz_grid, device),
         )
-    return SinglePopModel(
+    return cls(
         grid=grid_from_numpy(**grid, device=device),
         stars=stars_from_numpy(**stars, device=device),
         priors=ClusterPriors(mean=_t(prior_mean, device),
@@ -102,3 +105,11 @@ def model_from_numpy(grid: Mapping, stars: Mapping, prior_mean, prior_sigma,
         upsample=upsample,
         **wd,
     )
+
+
+def multipop_model_from_numpy(*args, device: torch.device | str,
+                              **kwargs) -> MultiPopModel:
+    """MultiPopModel from a base_tpu MultiPopModel's pieces (priors over
+    the 12-vector), as model_from_numpy."""
+    return model_from_numpy(*args, device=device, cls=MultiPopModel,
+                            **kwargs)

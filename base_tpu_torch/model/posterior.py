@@ -35,8 +35,8 @@ from base_tpu_torch.utils.transforms import (
 
 
 @dataclasses.dataclass(frozen=True)
-class SinglePopModel:
-    """Everything static for one single-population run.
+class ClusterModel:
+    """Everything static for one run, single- or multi-population.
 
     The WD branch is optional: with `wd_stars` None the density is
     MS-only; with the WD fields set, log_post adds the precursor-mass
@@ -68,7 +68,13 @@ class SinglePopModel:
                              "use_pallas=False is for CPU tensors only")
 
 
-def make_single_pop_model(
+@dataclasses.dataclass(frozen=True)
+class SinglePopModel(ClusterModel):
+    """One population: priors over the 9-parameter cluster vector."""
+
+
+def make_model(
+    cls: type,
     grid: IsochroneGrid,
     stars: MSStars,
     prior_mean: np.ndarray,
@@ -86,7 +92,9 @@ def make_single_pop_model(
     upsample: int = 1,
     *,
     device: torch.device | str,
-) -> SinglePopModel:
+) -> ClusterModel:
+    """A model of class `cls` (a ClusterModel) with base_tpu's q and
+    precursor-mass grids and the grid's extinction coefficients."""
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
@@ -96,7 +104,7 @@ def make_single_pop_model(
             raise ValueError("wd_stars requires wd_cooling and wd_atm grids")
         mz_grid = t(np.linspace(0.8, C.MAX_WD_PRECURSOR_MASS, n_mz,
                                 dtype=np.float32))
-    return SinglePopModel(
+    return cls(
         grid=grid,
         stars=stars,
         priors=ClusterPriors(mean=t(prior_mean), sigma=t(prior_sigma)),
@@ -115,8 +123,16 @@ def make_single_pop_model(
     )
 
 
-def log_lik(model: SinglePopModel, params: torch.Tensor):
-    """Total per-star log likelihood [C] and the bounds flag [C]."""
+def make_single_pop_model(*args, device: torch.device | str,
+                          **kwargs) -> SinglePopModel:
+    """make_model's arguments, for one population."""
+    return make_model(SinglePopModel, *args, device=device, **kwargs)
+
+
+def ms_table(model: ClusterModel, params: torch.Tensor):
+    """The MS segment table of 9-vectors params [R, 9] and the isochrone
+    it was built from: one derive_isochrone, one upsample and one table
+    build (the fused one with binaries and use_pallas) for every row."""
     age = params[:, C.Param.AGE]
     y = params[:, C.Param.YYY]
     feh = params[:, C.Param.FEH]
@@ -138,13 +154,20 @@ def log_lik(model: SinglePopModel, params: torch.Tensor):
             binaries=model.binaries, uniform_q=model.uniform_q,
             sec_iso=base_iso,
         )
+    return table, iso
+
+
+def log_lik(model: SinglePopModel, params: torch.Tensor):
+    """Total per-star log likelihood [C] and the bounds flag [C]."""
+    table, iso = ms_table(model, params)
     ll = lk.ms_total_loglik(model.stars, table, model.use_pallas)
     if model.wd_stars is not None:
         mags, _, valid = wd_mod.wd_model_mags(
             model.grid, model.wd_cooling, model.wd_atm, params,
             model.mz_grid, model.ifmr_kind)
         ll = ll + wd_mod.wd_total_loglik(
-            model.wd_stars, mags, valid, model.mz_grid, mod, av,
+            model.wd_stars, mags, valid, model.mz_grid,
+            params[:, C.Param.MOD], params[:, C.Param.ABS],
             model.abs_coefs, model.p_db, model.use_pallas)
     return ll, iso.in_bounds
 
@@ -176,28 +199,33 @@ def free_mask(model: SinglePopModel) -> tuple:
     return tuple(float(v) for v in m)
 
 
-def default_transform(model: SinglePopModel,
-                      margin: float = 1e-3) -> IntervalTransform:
-    """Unconstrained-space bijection with bounds from the grid hull.
-
-    age/Y/FeH: grid extent (slightly shrunk); A_V in [0, 10];
-    carbonicity in [0, 1]; modulus and IFMR coefficients unbounded.
-    """
-    g = model.grid
-    lo = np.full(C.NPARAMS, -np.inf, np.float32)
-    hi = np.full(C.NPARAMS, np.inf, np.float32)
+def param_bounds(grid: IsochroneGrid, n_params: int, margin: float):
+    """(lo, hi) [n_params] of the nine cluster slots: age/Y/FeH on the
+    grid extent (shrunk by `margin` of it), A_V in [0, 10], carbonicity in
+    [0, 1]; modulus, the IFMR coefficients and any further slot
+    unbounded."""
+    lo = np.full(n_params, -np.inf, np.float32)
+    hi = np.full(n_params, np.inf, np.float32)
 
     def span(ax):
         a0, a1 = float(ax[0]), float(ax[-1])
         d = (a1 - a0) * margin
         return a0 + d, a1 - d
 
-    lo[C.Param.AGE], hi[C.Param.AGE] = span(g.age)
-    lo[C.Param.YYY], hi[C.Param.YYY] = span(g.y)
-    lo[C.Param.FEH], hi[C.Param.FEH] = span(g.feh)
+    lo[C.Param.AGE], hi[C.Param.AGE] = span(grid.age)
+    lo[C.Param.YYY], hi[C.Param.YYY] = span(grid.y)
+    lo[C.Param.FEH], hi[C.Param.FEH] = span(grid.feh)
     lo[C.Param.ABS], hi[C.Param.ABS] = 0.0, 10.0
     lo[C.Param.CARBONICITY], hi[C.Param.CARBONICITY] = 0.0, 1.0
-    return make_interval_transform(lo, hi, device=g.device)
+    return lo, hi
+
+
+def default_transform(model: SinglePopModel,
+                      margin: float = 1e-3) -> IntervalTransform:
+    """Unconstrained-space bijection with bounds from the grid hull
+    (param_bounds)."""
+    lo, hi = param_bounds(model.grid, C.NPARAMS, margin)
+    return make_interval_transform(lo, hi, device=model.grid.device)
 
 
 def make_logpost_z_fn(model: SinglePopModel, transform: IntervalTransform):

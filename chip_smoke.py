@@ -17,12 +17,14 @@ Phases:
    (T = 2016, N = 2024), with the tolerances asserted;
 3. log_post and its gradient on 64 chains, kernels on the card against the
    plain path on the CPU, and two card runs compared bit for bit;
-4. HMC through make_hmc_chunked_runner, with every kernel's launch count
-   taken over this phase alone;
+4. HMC through make_hmc_chunked_runner (64 + 64 draws), with every
+   kernel's launch count taken over this phase alone;
 5. each kernel's time against its plain version (CUDA events) at both
-   shapes, beside its bound: the larger of the operations it needs over the
-   card's FP32 peak and the bytes it must move over the HBM rate, counted
-   from this run's inputs by the formulas in `kernel_work`;
+   shapes, and its device time (`device_ms`: CUDA events around launches
+   queued behind a sleep kernel), beside its bound: the larger of the
+   operations it needs over the card's FP32 peak and the bytes it must
+   move over the HBM rate, counted from this run's inputs by the formulas
+   in `kernel_work`;
 6. one torch.profiler pass over a few density + gradient calls at each
    shape: the device's busy share and each kernel's share of device time.
 
@@ -34,16 +36,37 @@ DA + DB segment table (T = 190), so they launch twice per evaluation.
 Phases 7a-7e (`run_config3`): 7a kernels 3 and 4 against their plain
 versions at its MS and WD shapes, a fully masked WD chain among them; 7b
 log_post and its gradient, card against CPU, and bit for bit; 7c chunked
-HMC (launches counted over this phase alone); 7d sample_wd_masses on
-thinned draws against the simulated ZAMS masses; 7e the density's wall
-and device time per call, its busy share, and kernels 3 and 4 at the WD
-shapes against their bound.
+HMC, 64 + 32 draws (launches counted over this phase alone); 7d
+sample_wd_masses on thinned draws against the simulated ZAMS masses; 7e
+the density's wall and device time per call, its busy share, and kernels
+3 and 4 at the WD shapes against their bound.
+
+Config 4 (BASELINE.json config 4, benchmarks/multipop_tpu.py's settings)
+is the two-population helium-spread path: 400 stars, 60% at Y_A = 0.25 and
+40% at Y_B = 0.30, every one a binary, twelve parameters through the
+ordered (Y_A < Y_B) transform, 32 chains.  Both populations run in one pass
+of the density on a doubled chain axis, so each kernel launches once per
+evaluation on 64 table chains.  Phases 8a-8e (`run_config4`): 8a the four
+kernels against their plain versions at its shapes (S = 400, T = 2016, 64
+table chains), and the folded launch against two per-population launches
+bit for bit; 8b log_post and its gradient, card against CPU, bit for bit,
+and the label swap (Y_A, Y_B, lambda) -> (Y_B, Y_A, 1 - lambda); 8c
+vi_warm_start, then chunked HMC from its draws and covariance, with every
+kernel's launches held equal to the density evaluations; 8d adaptive MH on
+64 chains; 8e the density's wall and device time per call, its busy
+share, the folded pass against two passes, and the four kernels at the
+config-4 shapes against their bound.
+
+Every profiler pass (phases 6, 7e and 8e) is padded with idle host time
+(PROFILE_PAD_S) and must hold the records of at least 99% of the launches
+that the kernel wrappers counted in it.
 
 The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
-that the per-kernel JSON (config 3's launches and WD-shape numbers as
-extra fields).  Without a CUDA device it exits non-zero before printing
-any result.  It imports nothing of JAX.
+that the per-kernel JSON (config 3's launches and WD-shape numbers, and
+config 4's launches and times at its shapes, as extra fields).  Without a
+CUDA device it exits non-zero before printing any result.  It imports
+nothing of JAX.
 
     python3 chip_smoke.py --times-only [--root DIR]
 
@@ -173,14 +196,45 @@ def chain_points(model, spread: float, seed: int, truth=TRUTH,
                                         device=dev)
 
 
+def transform(model):
+    """The model's sampling transform: default_transform for a single
+    population, the ordered (Y_A < Y_B) transform for two."""
+    from base_tpu_torch.model import multipop as mp
+    from base_tpu_torch.model import posterior as post
+
+    if isinstance(model, mp.MultiPopModel):
+        return mp.ordered_transform(model)
+    return post.default_transform(model)
+
+
+def logpost_z_fn(model):
+    """The model's density at unconstrained points, z [C, P] -> [C]."""
+    from base_tpu_torch.model import multipop as mp
+    from base_tpu_torch.model import posterior as post
+
+    mod = mp if isinstance(model, mp.MultiPopModel) else post
+    return mod.make_logpost_z_fn(model, transform(model))
+
+
+def model_rows(model, z):
+    """The 9-parameter rows [R, 9] that one pass of the density evaluates
+    at unconstrained points z [C, P]: the chains (R = C), or for two
+    populations both of them folded on the chain axis (R = 2C, rows :C at
+    Y_A and C: at Y_B)."""
+    from base_tpu_torch.model import multipop as mp
+
+    x = transform(model).forward(z)
+    return mp.population_params(x) if isinstance(model, mp.MultiPopModel) \
+        else x
+
+
 def kernel_inputs(model, z):
     """The kernels' inputs as the main path builds them at points z."""
     from base_tpu_torch.grids.isochrone import (derive_isochrone,
                                                 upsample_isochrone)
     from base_tpu_torch.model import likelihood as lk
-    from base_tpu_torch.model import posterior as post
 
-    x = post.default_transform(model).forward(z)
+    x = model_rows(model, z)
     base = derive_isochrone(model.grid, x[:, 2], x[:, 1], x[:, 0])
     iso = upsample_isochrone(base, model.upsample)
     args = (iso, model.q_grid, x[:, 3], x[:, 4], model.abs_coefs)
@@ -288,15 +342,8 @@ def check_kernels(model, z, label: str) -> dict:
 def check_density(model_gpu, model_cpu, z) -> None:
     """log_post + gradient: card kernels vs the CPU plain path, then two
     card runs bit for bit."""
-    from base_tpu_torch.inference.hmc import value_and_grad
-    from base_tpu_torch.model import posterior as post
-
-    def vg(model):
-        return value_and_grad(post.make_logpost_z_fn(
-            model, post.default_transform(model)))
-
-    lp_g, g_g = vg(model_gpu)(z)
-    lp_c, g_c = vg(model_cpu)(z.cpu())
+    lp_g, g_g = density_fn(model_gpu)(z)
+    lp_c, g_c = density_fn(model_cpu)(z.cpu())
     rel = ((lp_g.cpu() - lp_c).abs() / lp_c.abs().clamp_min(1.0)).max()
     gerr = ((g_g.cpu() - g_c).abs().amax(1)
             / g_c.abs().amax(1).clamp_min(1e-30)).max()
@@ -307,7 +354,7 @@ def check_density(model_gpu, model_cpu, z) -> None:
         raise AssertionError("non-finite density or gradient on the card")
     if not (rel <= DENSITY_REL_TOL and gerr <= DENSITY_GRAD_TOL):
         raise AssertionError("card density disagrees with the CPU path")
-    lp2, g2 = vg(model_gpu)(z)
+    lp2, g2 = density_fn(model_gpu)(z)
     same = torch.equal(lp_g, lp2) and torch.equal(g_g, g2)
     log(f"  two card runs bit-identical: {same}")
     if not same:
@@ -332,61 +379,71 @@ def reset_launch_counts() -> None:
     ml.marglik_fwd_launches = ml.marglik_bwd_launches = 0
 
 
-PARAM_NAMES = ("logAge", "Y", "FeH", "mod", "Av", "carbonicity",
-               "ifmrIntercept", "ifmrSlope", "ifmrQuadCoef")
-
-
 def run_hmc(model, truth=TRUTH, n_chains: int = N_CHAINS, free=FREE,
-            n_warmup: int = 128, n_samples: int = 128, n_windows: int = 4,
-            rhat_max: float | None = 1.1, report=(0,)):
+            n_warmup: int = 64, n_samples: int = 64, n_windows: int = 4,
+            rhat_max: float | None = 1.1, report=(0,), init=None,
+            inv_mass0=None, init_step: float = 0.05, seed: int = 4):
     """The main path: chunked dense-metric HMC on the card, l_max 48 and
-    step jitter, from near the truth.  Returns (results, constrained draws
-    [n_samples, C, 9]); asserts finite draws, an acceptance in (0, 1),
-    every kernel launched, the age within 0.15 dex of the truth and (with
-    rhat_max) split R-hat of the age below it.  `report` lists the
-    parameters whose posterior mean and sd are printed beside the
-    truth."""
+    step jitter, through the model's transform, from `init` [C, P]
+    (unconstrained; by default near the truth) with the metric
+    `inv_mass0`.  Returns (results, constrained draws [n_samples, C, P]);
+    the launches are counted over the run alone, beside the density
+    evaluations.  Asserts finite draws, an acceptance in (0, 1), every
+    kernel launched, the age within 0.15 dex of the truth and (with
+    rhat_max) split R-hat of the age below it.  ESS, split R-hat and the
+    posterior mean and sd beside the truth are reported for the
+    parameters in `report`."""
     from base_tpu_torch.inference import diagnostics as diag
     from base_tpu_torch.inference.driver import make_hmc_chunked_runner
     from base_tpu_torch.inference.hmc import HMCConfig
-    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.model.multipop import MP_PARAM_NAMES
 
     cfg = HMCConfig(n_warmup=n_warmup, n_samples=n_samples, l_max=48,
                     n_windows=n_windows, dense_mass=True, free_mask=free,
-                    jitter_mode="step")
-    tr = post.default_transform(model)
-    fz = post.make_logpost_z_fn(model, tr)
-    dev = tr.lo.device
-    z0 = tr.inverse(torch.as_tensor(truth, device=dev))
-    init = z0 + 0.02 * torch.randn(
-        n_chains, 9, generator=torch.Generator().manual_seed(2)).to(dev)
+                    jitter_mode="step", init_step=init_step)
+    tr = transform(model)
+    fz0 = logpost_z_fn(model)
+    evals = [0]
+
+    def fz(z):
+        evals[0] += 1
+        return fz0(z)
+
+    dev = model.grid.device
+    if init is None:
+        z0 = tr.inverse(torch.as_tensor(truth, device=dev))
+        init = z0 + 0.02 * torch.randn(
+            n_chains, z0.shape[0],
+            generator=torch.Generator().manual_seed(2)).to(dev)
     runner = make_hmc_chunked_runner(fz, cfg, chunk_draws=64)
-    gen = torch.Generator(device=dev).manual_seed(4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    zs, info = runner(init, gen)
+    zs, info = runner(init, gen, inv_mass0=inv_mass0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
 
-    xs = tr.forward(zs)                                  # [N, C, 9]
+    xs = tr.forward(zs)                                  # [N, C, P]
     accept = float(info["accept_prob"])
-    evals = (cfg.n_warmup + cfg.n_samples) * cfg.l_max * n_chains
+    names = [MP_PARAM_NAMES[i] for i in report]
+    ess = diag.ess(xs[:, :, list(report)])
+    rhat = diag.split_rhat(xs[:, :, list(report)])
     res = dict(
         wall_s=wall,
-        evals_per_s=evals / wall,
+        evals=evals[0],
+        calls_per_s=evals[0] / wall,
+        evals_per_s=evals[0] * n_chains / wall,     # chain evaluations
         accept=accept,
         step_size=float(info["step_size"]),
-        ess_age=float(diag.ess(xs[:, :, :1])[0]),
-        rhat_age=float(diag.split_rhat(xs[:, :, :1])[0]),
-        mean_age=float(xs[:, :, 0].mean()),
-        sd_age=float(xs[:, :, 0].std()),
-        posterior={PARAM_NAMES[i]: dict(mean=float(xs[:, :, i].mean()),
-                                        sd=float(xs[:, :, i].std()),
-                                        truth=float(truth[i]))
-                   for i in report},
+        ess={n: float(v) for n, v in zip(names, ess)},
+        rhat={n: float(v) for n, v in zip(names, rhat)},
+        posterior={n: dict(mean=float(xs[:, :, i].mean()),
+                           sd=float(xs[:, :, i].std()),
+                           truth=float(truth[i]))
+                   for n, i in zip(names, report)},
         launches=counts,
     )
     log("  " + json.dumps(res))
@@ -399,10 +456,10 @@ def run_hmc(model, truth=TRUTH, n_chains: int = N_CHAINS, free=FREE,
         raise AssertionError(f"main path never launched {missing}")
     # The simulated truth is recovered: age within 0.15 dex (posterior sd
     # ~0.03 at 100 stars) and, where asked, the chains mixed.
-    if not abs(res["mean_age"] - truth[0]) < 0.15:
+    if not abs(float(xs[:, :, 0].mean()) - truth[0]) < 0.15:
         raise AssertionError("HMC posterior misses the simulated truth")
-    if rhat_max is not None and not res["rhat_age"] < rhat_max:
-        raise AssertionError(f"split R-hat of age {res['rhat_age']:.3f}")
+    if rhat_max is not None and not res["rhat"]["logAge"] < rhat_max:
+        raise AssertionError(f"split R-hat of age {res['rhat']['logAge']:.3f}")
     return res, xs
 
 
@@ -430,34 +487,68 @@ def _kernel_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, symbols, reps: int = 20) -> float | None:
-    """The kernel's own time on the card per call (ms): torch.profiler's
-    mean device time per launch of each kernel named in `symbols`, summed
-    over them.  None when the profiler sees no device time."""
+# Idle host time around the work of every profiler session: short
+# sessions without it lost their kernel records as the process aged, padded
+# ones kept them (scripts/torch_profiler_probe.py; PERF.md section 6).
+PROFILE_PAD_S = 1.0
+
+
+def profiled(work):
+    """torch.profiler (CPU and CUDA) around `work()`, padded by
+    PROFILE_PAD_S of idle host time on each side; returns the profile."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        time.sleep(PROFILE_PAD_S)
+        work()
         torch.cuda.synchronize()
-    us = sum(_dev_us(e) / e.count for e in _kernel_events(prof)
-             if e.count and any(sym in e.key for sym in symbols))
-    return us / 1e3 if us > 0 else None
+        time.sleep(PROFILE_PAD_S)
+    return prof
 
 
-def time_pair(name, kernel, plain) -> tuple[float, float, float | None]:
+# Cycles of torch.cuda._sleep that hold the stream while the host enqueues
+# the launches that device_ms times behind it (~25 ms at 2 GHz).
+SLEEP_CYCLES = 50_000_000
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The kernel's own time on the card per call (ms): CUDA events around
+    `reps` calls enqueued behind a sleep kernel, so that they run back to
+    back and the host's dispatch stays out of the time (which holds the
+    kernels' device time and the device's gap between launches).  Raises
+    unless the host enqueued every call before the sleep ended.  A
+    profiler session per kernel measured this too, but late in a run one
+    such session recorded no kernel at all (PERF.md section 6)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ev[2].record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].synchronize()
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    if not host_ms < 0.8 * sleep_ms:
+        raise AssertionError(f"enqueueing {reps} calls took {host_ms:.2f} ms"
+                             f" of a {sleep_ms:.2f} ms sleep")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def time_pair(kernel, plain) -> tuple[float, float, float]:
     """(kernel ms, plain ms, kernel device ms): CUDA events over 20 calls,
-    in the order plain, kernel, kernel, plain; then the profiler's device
-    time of the kernel alone."""
+    in the order plain, kernel, kernel, plain; then the kernel's device
+    time (device_ms)."""
     p1 = cuda_ms(plain)
     k1 = cuda_ms(kernel)
     k2 = cuda_ms(kernel)
     p2 = cuda_ms(plain)
-    return (0.5 * (k1 + k2), 0.5 * (p1 + p2),
-            device_ms(kernel, KERNEL_SYMBOLS[name]))
+    return 0.5 * (k1 + k2), 0.5 * (p1 + p2), device_ms(kernel)
 
 
 def time_marglik(marg_in) -> dict:
@@ -467,11 +558,9 @@ def time_marglik(marg_in) -> dict:
     out = ml.marglik_fwd_plain(*marg_in)
     gs = torch.ones_like(out)
     return {
-        "marglik_fwd": time_pair("marglik_fwd",
-                                 lambda: ml.marglik_fwd_cuda(*marg_in),
+        "marglik_fwd": time_pair(lambda: ml.marglik_fwd_cuda(*marg_in),
                                  lambda: ml.marglik_fwd_plain(*marg_in)),
         "marglik_bwd": time_pair(
-            "marglik_bwd",
             lambda: ml.marglik_bwd_cuda(*marg_in, out, gs),
             lambda: ml.marglik_bwd_plain(*marg_in, out, gs)),
     }
@@ -484,11 +573,9 @@ def time_kernels(model, z) -> dict:
     comb = tb.table_fwd_plain(*table_in)
     g = torch.ones_like(comb)
     return {
-        "table_fwd": time_pair("table_fwd",
-                               lambda: tb.table_fwd_cuda(*table_in),
+        "table_fwd": time_pair(lambda: tb.table_fwd_cuda(*table_in),
                                lambda: tb.table_fwd_plain(*table_in)),
-        "table_bwd": time_pair("table_bwd",
-                               lambda: tb.table_bwd_cuda(*table_in, g),
+        "table_bwd": time_pair(lambda: tb.table_bwd_cuda(*table_in, g),
                                lambda: tb.table_bwd_plain(*table_in, g)),
         **time_marglik(marg_in),
     }
@@ -609,10 +696,8 @@ def bound(flops: int, nbytes: int) -> tuple[float, str]:
 def density_fn(model):
     """log_post + gradient of the model's chains at unconstrained points."""
     from base_tpu_torch.inference.hmc import value_and_grad
-    from base_tpu_torch.model import posterior as post
 
-    return value_and_grad(post.make_logpost_z_fn(
-        model, post.default_transform(model)))
+    return value_and_grad(logpost_z_fn(model))
 
 
 def device_shares(model, z, label: str, wall_ms: float,
@@ -620,26 +705,38 @@ def device_shares(model, z, label: str, wall_ms: float,
     """One torch.profiler pass over `calls` density + gradient calls:
     device time per call over `wall_ms` (the call's time without the
     profiler, CUDA events) as the device's busy share, and each kernel's
-    share of device time.  Empty when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    share of device time.  Raises unless the profiler recorded at least
+    99% of the launches that the kernel wrappers counted in the pass, for
+    each of the four kernels (`recorded`: the share it recorded)."""
     vg = density_fn(model)
     for _ in range(2):
         vg(z)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def work():
         t0 = time.perf_counter()
         for _ in range(calls):
             vg(z)
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+        walls.append(1e6 * (time.perf_counter() - t0))
+
+    before = launch_counts()
+    prof = profiled(work)
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    wall_us = walls[0]
     kernels = _kernel_events(prof)
     busy = sum(_dev_us(e) for e in kernels)
-    if busy <= 0:
-        log(f"  [{label}] profiler saw no device time: shares not measured")
-        return {}
+    # Records per wrapper launch (kernel 2 is two device kernels).
+    recorded = {name: sum(e.count for e in kernels
+                          if any(sym in e.key for sym in syms))
+                / max(launched[name] * (2 if name == "table_bwd" else 1), 1)
+                for name, syms in KERNEL_SYMBOLS.items()}
+    log(f"  [{label}] profiler recorded {recorded} of the launches "
+        f"{launched}")
+    if busy <= 0 or not all(0.99 <= r <= 1.0 for r in recorded.values()):
+        raise AssertionError(f"[{label}] the profiler missed launches")
     res = dict(
+        recorded=recorded,
         label=label,
         wall_ms_per_call=wall_ms,
         wall_ms_per_call_profiled=wall_us / calls / 1e3,
@@ -653,6 +750,11 @@ def device_shares(model, z, label: str, wall_ms: float,
     )
     log("  device shares " + json.dumps(res))
     return res
+
+
+def profiler_ms(shares: dict, name: str) -> float:
+    """A kernel's device time per density call in a device_shares pass."""
+    return shares["kernel_share"][name] * shares["device_ms_per_call"]
 
 
 def density_walls(models: dict, z) -> dict:
@@ -678,11 +780,10 @@ def kernel_report(model, model_up4, z) -> dict:
         ms4, plain_ms4, dev4 = times_up4[name]
         bound_ms, bound_by = bound(*work[name])
         bound_up4, by_up4 = bound(*work_up4[name])
-        # Share of bound: over the kernel's own device time where the
-        # profiler gives it (back-to-back calls of a short kernel measure
-        # the host's dispatch), else over the event time.
-        share = bound_ms / (dev or ms)
-        share4 = bound_up4 / (dev4 or ms4)
+        # Share of bound: over the kernel's device time (back-to-back
+        # calls of a short kernel measure the host's dispatch).
+        share = bound_ms / dev
+        share4 = bound_up4 / dev4
         report[name] = dict(
             ms=ms, plain_ms=plain_ms, device_ms=dev, flops=work[name][0],
             bytes=work[name][1], bound_ms=bound_ms, bound_by=bound_by,
@@ -718,9 +819,9 @@ PRIOR_SIGMA3 = np.array([-1, -1, 0.3, 0.2, 0.1, 0.1, 0.3, 0.15, -1],
                         np.float32)
 N_CHAINS3, N_STARS3, N_MZ3, UPSAMPLE3 = 16, 512, 96, 4
 # A short run (the benchmark takes 768 + 3072): one density + gradient call
-# of config 3 takes ~29 ms on the card, host-bound, so 192 x 48 calls keep
-# the whole script near half its time limit.
-N_WARMUP3, N_SAMPLES3 = 128, 64
+# of config 3 takes 25-46 ms on the card, host-bound (the host varies), so
+# 92 x 48 calls keep the whole script near half its time limit.
+N_WARMUP3, N_SAMPLES3 = 64, 32
 
 
 def make_data3():
@@ -892,6 +993,313 @@ def run_config3(dev, baseline=None) -> dict:
                 wd_kernels=wd_kernels)
 
 
+# Config 4 (BASELINE.json config 4, benchmarks/multipop_tpu.py:25-73): a
+# two-population helium-spread cluster (NGC 2808-style), 60% of its stars at
+# Y_A = 0.25 and 40% at Y_B = 0.30, fitted in twelve dims through the ordered
+# (Y_A < Y_B) transform after a full-rank VI warm start.  Both populations
+# go through one pass of the density on a doubled chain axis, so 32 chains
+# are 64 table chains.
+TRUTH4 = np.concatenate([TRUTH, [0.25, 0.30, 0.6]]).astype(np.float32)
+START4 = np.concatenate([TRUTH, [0.26, 0.29, 0.5]]).astype(np.float32)
+PRIOR_MEAN4 = np.concatenate([TRUTH, [0.25, 0.30, 0.5]]).astype(np.float32)
+PRIOR_SIGMA4 = np.concatenate([PRIOR_SIGMA, [-1, -1, -1]]).astype(np.float32)
+N_CHAINS4, N_STARS4, UPSAMPLE4 = 32, 400, 4
+# A short run (the benchmark takes 256 + 1024 draws).
+N_WARMUP4, N_SAMPLES4 = 128, 64
+# Reference-parity MH (bench_baseline.py:229-231): 64 chains.
+N_CHAINS_MH4 = 64
+STEP_MH4 = np.zeros(12, np.float32)
+STEP_MH4[[0, 2, 3, 4]] = (0.02, 0.005, 0.005, 0.002)
+STEP_MH4[[9, 10, 11]] = (0.002, 0.002, 0.02)
+
+
+def make_data4():
+    """Config-4 photometry through the port's simulator (every star a
+    binary, masses from 0.15 Msun) and noise model (no censoring), on the
+    CPU from fixed seeds: 240 stars at Y_A, then 160 at Y_B."""
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.sim.scatter import scatter_cluster
+    from base_tpu_torch.sim.simulate import simulate_cluster
+
+    grid = synthetic.make_grid(n_eep=N_EEP, device="cpu")
+    gen = torch.Generator().manual_seed(20)
+    n_a = int(round(N_STARS4 * TRUTH4[11]))
+    mags = []
+    for y, n in ((TRUTH4[9], n_a), (TRUTH4[10], N_STARS4 - n_a)):
+        p = TRUTH.copy()
+        p[1] = y
+        mags.append(simulate_cluster(grid, torch.as_tensor(p), n, gen,
+                                     percent_binary=1.0, min_mass=0.15).mags)
+    sc = scatter_cluster(torch.cat(mags), gen, limit_mag=24.0, censor=False)
+    return sc.mags.numpy(), sc.sigmas.numpy()
+
+
+def make_model4(data4, device):
+    """The config-4 model (multipop_tpu.py:59-69): n_q 8, upsample 4,
+    priors on FeH, modulus and A_V."""
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.model import multipop as mp
+    from base_tpu_torch.model.stardata import make_ms_stars
+
+    return mp.make_multipop_model(
+        synthetic.make_grid(n_eep=N_EEP, device=device),
+        make_ms_stars(*data4, cm_prior=0.99, device=device), PRIOR_MEAN4,
+        PRIOR_SIGMA4, n_q=N_Q, upsample=UPSAMPLE4, device=device)
+
+
+def config4_points(model) -> torch.Tensor:
+    """[32, 12] unconstrained points (ordered transform): chain 0 at the
+    truth, the rest scattered around it in the free dims."""
+    from base_tpu_torch.model import multipop as mp
+
+    tr = mp.ordered_transform(model)
+    dev = tr.base.lo.device
+    z0 = tr.inverse(torch.as_tensor(TRUTH4, device=dev))
+    gen = torch.Generator().manual_seed(21)
+    noise = 0.05 * torch.randn(N_CHAINS4, 12, generator=gen).to(dev)
+    noise[0] = 0.0
+    return z0 + noise * torch.as_tensor(mp.free_mask(model), device=dev)
+
+
+def check_fold(table_in, marg_in, n_chains: int) -> None:
+    """Each kernel on the folded inputs (2C table chains) against the same
+    kernel on rows :C and C: alone: the outputs bit for bit."""
+    from base_tpu_torch.ops import marglik as ml
+    from base_tpu_torch.ops import table as tb
+
+    gen = torch.Generator(device=marg_in[0].device).manual_seed(8)
+    comb = tb.table_fwd_cuda(*table_in)
+    g = torch.randn(comb.shape, generator=gen, device=comb.device)
+    dtab = tb.table_bwd_cuda(*table_in, g)
+    out = ml.marglik_fwd_cuda(*marg_in)
+    gs = torch.randn(out.shape, generator=gen, device=out.device)
+    dmarg = ml.marglik_bwd_cuda(*marg_in, out, gs)
+    same = dict.fromkeys(KERNELS, True)
+    for sl in (slice(0, n_chains), slice(n_chains, 2 * n_chains)):
+        t_in = tuple(t[sl].contiguous() for t in table_in)
+        m_in = marg_in[:3] + tuple(t[sl].contiguous() for t in marg_in[3:])
+        same["table_fwd"] &= torch.equal(tb.table_fwd_cuda(*t_in), comb[sl])
+        same["table_bwd"] &= all(
+            torch.equal(a, b[sl]) for a, b in
+            zip(tb.table_bwd_cuda(*t_in, g[sl].contiguous()), dtab))
+        same["marglik_fwd"] &= torch.equal(ml.marglik_fwd_cuda(*m_in),
+                                           out[sl])
+        same["marglik_bwd"] &= all(
+            torch.equal(a, b[sl]) for a, b in
+            zip(ml.marglik_bwd_cuda(*m_in, out[sl].contiguous(),
+                                    gs[sl].contiguous()), dmarg))
+    log(f"  folded launch (C = {2 * n_chains}) vs two launches of C = "
+        f"{n_chains}, bit-identical: {same}")
+    if not all(same.values()):
+        raise AssertionError("a folded launch differs from the per-"
+                             "population launches")
+
+
+def check_label_swap(model, z) -> None:
+    """Swapping (Y_A, Y_B) with lambda -> 1 - lambda leaves log_post
+    unchanged (rtol 1e-6)."""
+    from base_tpu_torch.model import multipop as mp
+
+    x = mp.ordered_transform(model).forward(z)
+    xs = torch.cat([x[:, :9], x[:, [mp.MP_YYB, mp.MP_YYA]],
+                    1.0 - x[:, mp.MP_LAMBDA, None]], dim=1)
+    lp, lp_s = mp.log_post(model, x), mp.log_post(model, xs)
+    rel = float(((lp_s - lp).abs() / lp.abs().clamp_min(1.0)).max())
+    log(f"  label swap: max rel change of log_post {rel:.3e}")
+    if not rel <= 1e-6:
+        raise AssertionError("log_post is not label-symmetric on the card")
+
+
+def run_multipop_hmc(model) -> dict:
+    """Phase 8c: vi_warm_start (full rank, 600 steps), then run_hmc
+    through the ordered transform from its draws and covariance; in each,
+    every kernel's launches held equal to the density evaluations."""
+    from base_tpu_torch.inference.vi import vi_warm_start
+    from base_tpu_torch.model import multipop as mp
+
+    free = mp.free_mask(model)
+    dev = model.grid.device
+    fz0 = logpost_z_fn(model)
+    evals = [0]
+
+    def fz(z):
+        evals[0] += 1
+        return fz0(z)
+
+    z0 = transform(model).inverse(torch.as_tensor(START4, device=dev))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init, inv_mass0, vres = vi_warm_start(
+        fz, z0, torch.Generator(device=dev).manual_seed(3), N_CHAINS4,
+        free_mask=free)
+    torch.cuda.synchronize()
+    vi_wall, vi_launches = time.perf_counter() - t0, launch_counts()
+
+    report = (0, 2, 3, 4, mp.MP_YYA, mp.MP_YYB, mp.MP_LAMBDA)
+    res, xs = run_hmc(model, TRUTH4, N_CHAINS4, free, N_WARMUP4, N_SAMPLES4,
+                      rhat_max=None, report=report, init=init,
+                      inv_mass0=inv_mass0, init_step=0.1, seed=5)
+    res.update(vi_wall_s=vi_wall, vi_evals=evals[0],
+               vi_final_elbo=float(vres.final_elbo),
+               vi_launches=vi_launches)
+    log("  VI: " + json.dumps({k: res[k] for k in (
+        "vi_wall_s", "vi_evals", "vi_final_elbo", "vi_launches")}))
+    for label, n, counts in (("VI", evals[0], vi_launches),
+                             ("HMC", res["evals"], res["launches"])):
+        if any(v != n for v in counts.values()):
+            raise AssertionError(f"{label} launches {counts} are not one per "
+                                 f"density evaluation ({n})")
+    if not bool((xs[..., mp.MP_YYB] > xs[..., mp.MP_YYA]).all()):
+        raise AssertionError("a draw has Y_B <= Y_A")
+    if not 0.6 <= res["accept"] <= 0.99:
+        raise AssertionError(f"acceptance {res['accept']} outside "
+                             f"[0.6, 0.99]")
+    mean = {n: v["mean"] for n, v in res["posterior"].items()}
+    if not (abs(mean["Y_A"] - TRUTH4[9]) < 0.03
+            and abs(mean["Y_B"] - TRUTH4[10]) < 0.03
+            and abs(mean["lambda"] - TRUTH4[11]) < 0.2):
+        raise AssertionError("HMC posterior misses the simulated truth")
+    return res
+
+
+def run_multipop_mh(model) -> dict:
+    """Phase 8d: reference-parity adaptive MH (bench_baseline.py:211-235's
+    step scales) on 64 chains from the truth, at 200 / 200 / 400 steps;
+    every step one density call without gradients (kernels 1 and 3
+    alone)."""
+    from base_tpu_torch.inference.mh import MHConfig, run_adaptive_mh
+    from base_tpu_torch.model import multipop as mp
+
+    dev = model.grid.device
+    f0 = mp.make_logpost_fn(model)
+    evals = [0]
+
+    def f(x):
+        evals[0] += 1
+        return f0(x)
+
+    start = torch.as_tensor(TRUTH4, device=dev)
+    cfg = MHConfig(n_stage1=200, n_stage2=200, n_main=400)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = run_adaptive_mh(
+        f, start.expand(N_CHAINS_MH4, -1).contiguous(),
+        torch.Generator(device=dev).manual_seed(6),
+        torch.as_tensor(STEP_MH4, device=dev), cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = cfg.n_stage1 + cfg.n_stage2 + cfg.n_main
+    rate = float(info["accept_rate"].mean())
+    res = dict(wall_s=wall, chains=N_CHAINS_MH4, steps=steps,
+               chain_steps_per_s=N_CHAINS_MH4 * steps / wall,
+               accept=rate, evals=evals[0], launches=counts,
+               stage2_accept=float(info["stage2_accept"].mean()),
+               mean_Y_A=float(samples[..., mp.MP_YYA].mean()),
+               mean_Y_B=float(samples[..., mp.MP_YYB].mean()),
+               mean_lambda=float(samples[..., mp.MP_LAMBDA].mean()))
+    log("  " + json.dumps(res))
+    lps = info["logposts"]
+    if not bool((torch.isfinite(lps) & (lps > -1e29)).all()):
+        raise AssertionError("non-finite MH log posteriors")
+    pinned = torch.as_tensor(STEP_MH4 == 0, device=dev)
+    if not bool((samples[..., pinned] == start[pinned]).all()):
+        raise AssertionError("a pinned MH dim moved")
+    if not 0.05 < rate < 0.6:
+        raise AssertionError(f"MH acceptance {rate} outside (0.05, 0.6)")
+    if not (counts["table_fwd"] == counts["marglik_fwd"] == evals[0]
+            and counts["table_bwd"] == counts["marglik_bwd"] == 0):
+        raise AssertionError(f"MH launches {counts} for {evals[0]} "
+                             f"evaluations without gradients")
+    return res
+
+
+def fold_walls(model, z) -> dict:
+    """ms per value + gradient of the MS marginals of both populations
+    (CUDA events): in one folded pass, as log_post runs them, and in two
+    passes of one population each."""
+    from base_tpu_torch.inference.hmc import value_and_grad
+    from base_tpu_torch.model import multipop as mp
+
+    tr = mp.ordered_transform(model)
+    C = z.shape[0]
+
+    def folded(zz):
+        return mp.population_marginals(
+            model, mp.population_params(tr.forward(zz)))[0].sum(1)
+
+    def two_pass(zz):
+        p2 = mp.population_params(tr.forward(zz))
+        return (mp.population_marginals(model, p2[:C])[0].sum(1)
+                + mp.population_marginals(model, p2[C:])[0].sum(1))
+
+    res = {}
+    for label, fn in (("folded", folded), ("two_pass", two_pass)):
+        vg = value_and_grad(fn)
+        res[label + "_ms"] = cuda_ms(lambda: vg(z))
+    log(f"  MS marginals of both populations, value + gradient: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def run_config4(dev) -> dict:
+    """Config 4's phases, after config 3's: (a) kernels 1-4 against their
+    plain versions at its shapes, and the folded launch against two
+    per-population launches bit for bit; (b) log_post + gradient, card
+    against the CPU plain path, twice bit for bit, and the label swap;
+    (c) VI warm start + chunked HMC, launches held equal to density
+    evaluations; (d) adaptive MH; (e) the density's wall and device time
+    per call, its busy share, and the kernels at the config-4 shapes
+    against their bound."""
+    from base_tpu_torch.model import multipop as mp
+
+    data4 = make_data4()
+    model = make_model4(data4, dev)
+    z = config4_points(model)
+    log(f"config 4: {N_STARS4} stars, {N_CHAINS4} chains ({2 * N_CHAINS4} "
+        f"table chains), free {mp.free_mask(model)}")
+
+    log("phase 8a: kernels vs plain and the fold at the config-4 shapes")
+    errs = check_kernels(model, z, "config 4")
+    check_fold(*kernel_inputs(model, z), N_CHAINS4)
+
+    log("phase 8b: log_post + gradient, card vs CPU; label swap")
+    check_density(model, make_model4(data4, "cpu"), z)
+    check_label_swap(model, z)
+
+    log(f"phase 8c: VI warm start + chunked HMC, {N_CHAINS4} chains, dense "
+        f"metric, l_max 48, {N_WARMUP4} + {N_SAMPLES4} draws")
+    hmc = run_multipop_hmc(model)
+
+    log(f"phase 8d: adaptive MH, {N_CHAINS_MH4} chains")
+    mh = run_multipop_mh(model)
+
+    log("phase 8e: density time and the kernels at the config-4 shapes")
+    wall = density_walls({"config 4": model}, z)["config 4"]
+    fold = fold_walls(model, z)
+    shares = device_shares(model, z, "config 4", wall)
+    times = time_kernels(model, z)
+    work = kernel_work(model, z)
+    kernels4 = {}
+    for name, (ms, plain_ms, dev_ms) in times.items():
+        bound_ms, bound_by = bound(*work[name])
+        kernels4[name] = dict(
+            ms_config4=ms, plain_ms_config4=plain_ms,
+            device_ms_config4=dev_ms, bound_ms_config4=bound_ms,
+            bound_by_config4=bound_by, max_abs_err_config4=errs[name],
+            launches_config4=(hmc["vi_launches"][name]
+                              + hmc["launches"][name]))
+        log(f"  {name} at the config-4 shapes: kernel {ms:.4f} ms, device "
+            f"{dev_ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.6f} ms by {bound_by}")
+    log("  marglik_bwd skip rule at the config-4 shapes: "
+        + json.dumps(work["marglik_bwd_skip"]))
+    return dict(hmc=hmc, mh=mh, wall_ms=wall, fold=fold, shares=shares,
+                kernels=kernels4)
+
+
 def kernel_outputs(models: dict, z) -> dict:
     """Kernels 1 and 4 on phase 2's inputs at each shape, with the inputs,
     for --save-outputs."""
@@ -1012,12 +1420,15 @@ def main() -> None:
 
     # 6. Device busy share and kernel shares of device time.
     log("phase 6: torch.profiler, density + gradient")
-    for label, m in models.items():
-        device_shares(m, z, label, walls[label])
+    shares = {label: device_shares(m, z, label, walls[label])
+              for label, m in models.items()}
 
     # 7a-7e. Config 3: the WD branch through kernels 3 and 4.
     c3 = run_config3(torch.device("cuda", 0),
                      baseline=(model_up4, z[:N_CHAINS3]))
+
+    # 8a-8e. Config 4: two populations folded into one pass.
+    c4 = run_config4(torch.device("cuda", 0))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1029,12 +1440,18 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=None,
             roofline_share=r["roofline_share"], ms_up4=r["ms_up4"],
             device_ms=r["device_ms"], device_ms_up4=r["device_ms_up4"],
+            # The profiler's time of the kernel in phase 6's density calls
+            # (config 1 launches each kernel once per call).
+            device_ms_profiler=profiler_ms(shares["bench"], name),
+            device_ms_profiler_up4=profiler_ms(shares["upsample 4"], name),
             **{k: r[k] for k in ("bound_ms_dense",) if k in r},
             launches_config3=c3["hmc"]["launches"][name],
-            **c3["wd_kernels"].get(name, {})))
-        if not all(math.isfinite(kernels[-1][k]) for k in
-                   ("ms", "plain_ms", "bound_ms", "ms_up4")):
-            raise AssertionError(f"{name}: a time is not finite")
+            **c3["wd_kernels"].get(name, {}),
+            **c4["kernels"][name]))
+        if not all(math.isfinite(v) for k, v in kernels[-1].items()
+                   if k.startswith(("ms", "plain_ms", "bound_ms",
+                                    "device_ms"))):
+            raise AssertionError(f"{name}: a time is missing or not finite")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

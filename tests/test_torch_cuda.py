@@ -326,3 +326,84 @@ def test_config3_density_deterministic(cuda):
     (lp1, g1), (lp2, g2) = vg(z), vg(z)
     assert bool(torch.isfinite(lp1).all() and torch.isfinite(g1).all())
     assert torch.equal(lp1, lp2) and torch.equal(g1, g2)
+
+
+def _config4(dev):
+    """chip_smoke.py's config-4 model (400 stars, two populations,
+    upsample 4) and its 32 chain points.  Run from the repository root."""
+    import chip_smoke
+
+    model = chip_smoke.make_model4(chip_smoke.make_data4(), dev)
+    return model, chip_smoke.config4_points(model)
+
+
+def test_config4_kernels_match_plain(cuda):
+    """Kernels 1-4 at config 4's shapes (64 table chains, S = 400, T =
+    2016, N = 2024) within chip_smoke.py's tolerances of their plain
+    versions, and kernels 3-4 of float64 (check_kernels raises past
+    them)."""
+    import chip_smoke
+
+    model, z = _config4(cuda)
+    errs = chip_smoke.check_kernels(model, z, "config 4")
+    assert set(errs) == set(chip_smoke.KERNELS)
+
+
+def test_config4_fold_bit_identical(cuda):
+    """Each kernel's launch on both populations folded on the chain axis
+    equals its launches on each population alone, bit for bit
+    (check_fold raises otherwise)."""
+    import chip_smoke
+
+    model, z = _config4(cuda)
+    table_in, marg_in = chip_smoke.kernel_inputs(model, z)
+    assert table_in[0].shape[0] == 2 * z.shape[0]
+    chip_smoke.check_fold(table_in, marg_in, z.shape[0])
+
+
+def test_config4_density_deterministic(cuda):
+    """chip_smoke.py's config-4 log_post + gradient on the card, twice:
+    bit-identical."""
+    import chip_smoke
+
+    model, z = _config4(cuda)
+    vg = chip_smoke.density_fn(model)
+    (lp1, g1), (lp2, g2) = vg(z), vg(z)
+    assert bool(torch.isfinite(lp1).all() and torch.isfinite(g1).all())
+    assert torch.equal(lp1, lp2) and torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("with_wd", [False, True])
+def test_multipop_launch_counts(cuda, with_wd):
+    """One value + gradient evaluation of a two-population model on the
+    card (4 chains) launches each of kernels 1-4 once, not once per
+    population; with WDs kernels 3 and 4 launch twice (MS and WD
+    tables) and kernels 1 and 2 once."""
+    import chip_smoke
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.grids.wd_atmosphere import synthetic_bergeron
+    from base_tpu_torch.grids.wd_cooling import synthetic_wd_cooling
+    from base_tpu_torch.model import multipop as mp
+    from base_tpu_torch.model.stardata import make_ms_stars
+
+    (ms, wd, _) = chip_smoke.make_data3()
+    kw = {}
+    if with_wd:
+        kw = dict(wd_cooling=synthetic_wd_cooling(device=cuda),
+                  wd_atm=synthetic_bergeron(device=cuda),
+                  wd_stars=make_ms_stars(*wd, cm_prior=0.99, device=cuda))
+    truth = np.concatenate([chip_smoke.TRUTH3, [0.26, 0.28, 0.6]])
+    sigma = np.concatenate([chip_smoke.PRIOR_SIGMA3, [-1, -1, -1]])
+    model = mp.make_multipop_model(
+        synthetic.make_grid(n_eep=64, device=cuda),
+        make_ms_stars(*ms, cm_prior=0.99, device=cuda), truth, sigma,
+        n_q=8, upsample=4, device=cuda, **kw)
+    x = torch.as_tensor(np.tile(truth, (4, 1)), dtype=torch.float32,
+                        device=cuda).requires_grad_(True)
+    chip_smoke.reset_launch_counts()
+    mp.log_post(model, x).sum().backward()
+    torch.cuda.synchronize()
+    n = 2 if with_wd else 1
+    assert chip_smoke.launch_counts() == {
+        "table_fwd": 1, "table_bwd": 1, "marglik_fwd": n, "marglik_bwd": n}
+    assert bool(torch.isfinite(x.grad).all())

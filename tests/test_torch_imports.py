@@ -1,5 +1,5 @@
-"""The port stands alone: no module of base_tpu_torch, and not chip_smoke.py,
-imports base_tpu or jax; and the port's own copies of base_tpu's JAX-free
+"""The port stands alone: no module of base_tpu_torch, and neither
+chip_smoke.py nor scripts/torch_profiler_probe.py, imports base_tpu or jax; and the port's own copies of base_tpu's JAX-free
 constants and filter tables equal the originals."""
 import ast
 from pathlib import Path
@@ -25,8 +25,11 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_base_tpu_or_jax():
     files = sorted((ROOT / "base_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts/torch_profiler_probe.py"]
     assert len(files) > 20
+    for module in ("model/multipop.py", "inference/vi.py",
+                   "inference/mh.py"):
+        assert ROOT / "base_tpu_torch" / module in files
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
         for p in files
@@ -38,6 +41,7 @@ def test_port_imports_no_base_tpu_or_jax():
 
 def test_port_constants_and_filters_equal_base_tpu():
     assert tconst.NPARAMS == jconst.NPARAMS
+    assert tconst.PARAM_NAMES == jconst.PARAM_NAMES
     assert tconst.IMF_LOG_MEAN == jconst.IMF_LOG_MEAN
     assert tconst.IMF_LOG_SIGMA == jconst.IMF_LOG_SIGMA
     assert tconst.MBOL_SUN == jconst.MBOL_SUN
