@@ -253,8 +253,10 @@ def init_chains(logpost_fn: Callable, init_z: torch.Tensor,
                          da=da_init(cfg.init_step, C, init_z.device))
 
 
-def _window_update(states, inv_mass, zs, w: int, cfg: HMCConfig, mask):
-    """Between-window adaptation.  Every window but the last installs the
+def _window_update(states, inv_mass, zs, w: int, cfg, mask):
+    """Between-window adaptation, shared by HMC and NUTS (`cfg` an
+    HMCConfig or a nuts.NUTSConfig: its n_windows and dense_mass).  Every
+    window but the last installs the
     pooled (co)variance estimate as the metric (pinned dims get a unit
     diagonal and no cross terms) and restarts dual averaging at each
     chain's current eps; the last keeps its metric, and its DA average

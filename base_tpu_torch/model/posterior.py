@@ -228,6 +228,16 @@ def default_transform(model: SinglePopModel,
     return make_interval_transform(lo, hi, device=model.grid.device)
 
 
+def make_logpost_fn(model: SinglePopModel):
+    """The density of 9-vectors, params [C, 9] -> [C]: the reference-parity
+    samplers' (MH) target."""
+
+    def f(params: torch.Tensor) -> torch.Tensor:
+        return log_post(model, params)
+
+    return f
+
+
 def make_logpost_z_fn(model: SinglePopModel, transform: IntervalTransform):
     """Unconstrained-space density for HMC: logpost(x(z)) + log|J|, with
     z [C, P] -> [C]."""

@@ -149,6 +149,19 @@ def launch(name: str, tensors, sizes) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({status})")
 
 
+# The kernels put the chain axis on gridDim.y, which CUDA caps at 65535.
+MAX_CHAINS = 65535
+
+
+def check_chains(C: int) -> None:
+    """Raise unless a launch's chain axis fits gridDim.y (no launch is
+    split or clipped)."""
+    if C > MAX_CHAINS:
+        raise ValueError(
+            f"{C} chains in one launch: the kernels take at most "
+            f"{MAX_CHAINS} (gridDim.y); evaluate the chains in blocks")
+
+
 def check(name: str, t: torch.Tensor, shape: tuple) -> None:
     """Raise unless `t` is a contiguous float32 CUDA tensor of `shape`."""
     if not t.is_cuda:

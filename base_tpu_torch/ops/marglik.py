@@ -229,6 +229,7 @@ def _checked(args):
     C, T = lo.shape[:2]
     if B > 16:
         raise ValueError(f"marginal kernels take at most 16 bands, got {B}")
+    build.check_chains(C)
     shapes = [(S, B), (S, B), (S,), (C, T, B), (C, T, B), (C, T), (C, T)]
     for name, t, shape in zip(_NAMES, args, shapes):
         build.check(name, t, shape)

@@ -154,6 +154,7 @@ def _shapes(app1N, secT):
     if (B + 4) * E2 * 4 > 48 * 1024:   # the staged axis + secondary table
         raise ValueError(f"table kernels stage (B + 4) * E2 floats in 48 KB "
                          f"of shared memory; got B={B}, E2={E2}")
+    build.check_chains(C)
     node = (C, 1, N)
     axis = (C, E2, 1)
     return (C, B, N, E2), [(C, B, N), node, node, (C, B, E2),

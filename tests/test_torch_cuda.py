@@ -407,3 +407,123 @@ def test_multipop_launch_counts(cuda, with_wd):
     assert chip_smoke.launch_counts() == {
         "table_fwd": 1, "table_bwd": 1, "marglik_fwd": n, "marglik_bwd": n}
     assert bool(torch.isfinite(x.grad).all())
+
+
+def test_chain_axis_above_grid_limit_raises(cuda):
+    """The kernels put the chain axis on gridDim.y (at most 65535): a
+    launch of 65536 chains raises before any launch, in every wrapper."""
+    from base_tpu_torch.ops import build
+
+    C = build.MAX_CHAINS + 1
+    args = _marglik_inputs(cuda, C=1, S=2, T=2, B=1)
+    big = args[:3] + tuple(t.expand(C, *t.shape[1:]).contiguous()
+                           for t in args[3:])
+    before = ml.marglik_fwd_launches, ml.marglik_bwd_launches
+    with pytest.raises(ValueError, match="65535"):
+        ml.marglik_fwd_cuda(*big)
+    out = torch.zeros(C, 2, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        ml.marglik_bwd_cuda(*big, out, out)
+    assert (ml.marglik_fwd_launches, ml.marglik_bwd_launches) == before
+    targs = _table_inputs(cuda, C=1, B=1, E=2, Q=2, E2=2)
+    tbig = tuple(t.expand(C, *t.shape[1:]).contiguous() for t in targs)
+    with pytest.raises(ValueError, match="65535"):
+        tb.table_fwd_cuda(*tbig)
+    with pytest.raises(ValueError, match="65535"):
+        tb.table_bwd_cuda(*tbig, tbig[0])
+    ok = args[:3] + tuple(t.expand(build.MAX_CHAINS, *t.shape[1:])
+                          .contiguous() for t in args[3:])
+    assert torch.equal(ml.marglik_fwd_cuda(*ok)[-1],
+                       ml.marglik_fwd_cuda(*args)[0])
+
+
+def test_kernels_1_and_3_at_10k_stars(cuda):
+    """chip_smoke.py's config-5 photometry (10 000 stars, upsample 4) on 64
+    chains: kernels 1 and 3 on every row against their plain versions on
+    4 rows, first and last among them, within FWD_TOL and MARGLIK_TOL."""
+    import chip_smoke
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.model.stardata import make_ms_stars
+
+    model = post.make_single_pop_model(
+        synthetic.make_grid(n_eep=64, device=cuda),
+        make_ms_stars(*chip_smoke.make_data5(), cm_prior=0.99, device=cuda),
+        chip_smoke.TRUTH, chip_smoke.PRIOR_SIGMA, n_q=8, upsample=4,
+        device=cuda)
+    z = chip_smoke.chain_points(model, 0.02, seed=3)
+    assert z.shape[0] == 64
+    table_in, marg_in = chip_smoke.kernel_inputs(model, z)
+    assert marg_in[0].shape[0] == 10_000 and marg_in[3].shape[1] == 2016
+    rows = torch.tensor([0, 21, 42, 63], device=cuda)
+    errs = chip_smoke.check_rows(table_in, marg_in, rows, "10k stars")
+    assert errs["table_fwd"] <= chip_smoke.FWD_TOL
+    assert errs["marglik_fwd"] <= chip_smoke.MARGLIK_TOL
+
+
+def test_nuts_launches_equal_density_calls(cuda):
+    """A short chunked NUTS run of config 1 on the card (8 chains, 40
+    stars): every leaf one density call on all chains, each of kernels
+    1-4 launched once per call, finite draws."""
+    import chip_smoke
+    from base_tpu_torch.inference.nuts import (NUTSConfig,
+                                               make_nuts_chunked_runner)
+
+    mags, sig = chip_smoke.make_data()
+    model = chip_smoke.make_model((mags[:40], sig[:40]), cuda)
+    rows = []
+    f0 = chip_smoke.logpost_z_fn(model)
+
+    def fz(z):
+        rows.append(z.shape[0])
+        return f0(z)
+
+    cfg = NUTSConfig(n_warmup=8, n_samples=8, max_depth=4, n_windows=2,
+                     dense_mass=True, free_mask=chip_smoke.FREE)
+    init = chip_smoke.chain_points(model, 0.02, seed=2, n_chains=8)
+    chip_smoke.reset_launch_counts()
+    zs, info = make_nuts_chunked_runner(fz, cfg, chunk_draws=8)(
+        init, torch.Generator(device=cuda).manual_seed(4))
+    counts = chip_smoke.launch_counts()
+    assert set(rows) == {8} and len(rows) > 16
+    assert counts == dict.fromkeys(chip_smoke.KERNELS, len(rows))
+    assert zs.shape == (8, 8, 9) and bool(torch.isfinite(zs).all())
+    assert 0.0 < float(info["accept_prob"]) <= 1.0
+
+
+def test_smc_folded_replicates_equal_single_runs(cuda):
+    """Tempered SMC on the card, 3 replicates x 256 particles folded into
+    one particle axis, equals each replicate run alone on its generator:
+    betas, log-evidence and particles bit for bit.  The target evaluates
+    each particle with elementwise operations alone, so its rows do not
+    depend on the batch they come in."""
+    import math
+
+    from base_tpu_torch.inference import smc
+
+    mean = torch.tensor([1.5, -0.5], device=cuda)
+    inv_sd = torch.tensor([1.0 / 0.7, 1.0 / 0.9], device=cuda)
+
+    def log_target(z):
+        e = (z - mean) * inv_sd
+        return -0.5 * (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1])
+
+    def log_q0(z):
+        return (-0.5 * (z[:, 0] * z[:, 0] + z[:, 1] * z[:, 1]) / 16.0
+                - 2.0 * math.log(4.0) - math.log(2.0 * math.pi))
+
+    def sample_q0(gen, n):
+        return 4.0 * torch.randn((n, 2), generator=gen, device=cuda)
+
+    cfg = smc.SMCConfig(n_particles=256, n_move=2, max_stages=16)
+    z, info = smc.run_smc_replicated(
+        log_target, sample_q0, log_q0,
+        torch.Generator(device=cuda).manual_seed(11), cfg, n_rep=3)
+    assert bool((info["betas"][:, -1] == 1.0).all())
+    gens = smc.replicate_generators(
+        torch.Generator(device=cuda).manual_seed(11), 3)
+    for r, gen in enumerate(gens):
+        zr, ir = smc.run_smc(log_target, sample_q0, log_q0, gen, cfg)
+        assert torch.equal(ir["betas"], info["betas"][r])
+        assert torch.equal(ir["log_evidence"], info["log_evidences"][r])
+        assert torch.equal(zr, z[256 * r:256 * (r + 1)])

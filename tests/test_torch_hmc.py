@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -130,7 +131,7 @@ def test_diagnostics_match_jax():
         x[t] = phi * x[t - 1] + rng.normal(size=(c, p))
     x[:, 0, 2] += 0.5                       # one offset chain: R-hat > 1
     for name in ("split_rhat", "ess"):
-        want = np.asarray(getattr(jdiag, name)(jnp.asarray(x)))
+        want = np.asarray(jax.jit(getattr(jdiag, name))(jnp.asarray(x)))
         got = getattr(tdiag, name)(torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=name)
 

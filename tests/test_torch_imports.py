@@ -28,7 +28,8 @@ def test_port_imports_no_base_tpu_or_jax():
     files += [ROOT / "chip_smoke.py", ROOT / "scripts/torch_profiler_probe.py"]
     assert len(files) > 20
     for module in ("model/multipop.py", "inference/vi.py",
-                   "inference/mh.py"):
+                   "inference/mh.py", "inference/nuts.py",
+                   "inference/smc.py"):
         assert ROOT / "base_tpu_torch" / module in files
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"

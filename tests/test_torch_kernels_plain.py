@@ -3,6 +3,7 @@ and .marglik, what a CPU tensor runs) against base_tpu's jnp path and its
 Pallas kernels in interpret mode, forward and backward, on identical
 float32 inputs made with numpy."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -54,8 +55,14 @@ def _torch_args(stars, table):
             _t(table.mask)[None].float())
 
 
+# base_tpu's references, jitted: each compiles once per shape, where eager
+# dispatch compiles every primitive on its first call.
+_jfused = jax.jit(jfused, static_argnums=7)
+_jms_marginals = jax.jit(jlk.ms_star_log_marginals)
+
+
 def _pallas(stars, table, log_norm=None, lo=None, hi=None, logw=None):
-    return jfused(
+    return _jfused(
         stars.obs_mags, stars.inv_var,
         stars.log_norm if log_norm is None else log_norm,
         table.lo if lo is None else lo, table.hi if hi is None else hi,
@@ -71,7 +78,7 @@ def test_marglik_plain_forward(shape):
     transcendental ulps) where the value is > -200."""
     stars, table = _problem(1, *shape)
     got = tml.marglik_fwd_plain(*_torch_args(stars, table)).numpy()[0]
-    for want in (np.asarray(jlk.ms_star_log_marginals(stars, table)),
+    for want in (np.asarray(_jms_marginals(stars, table)),
                  np.asarray(_pallas(stars, table))):
         sel = want > -200
         assert sel.sum() > 10
@@ -89,7 +96,7 @@ def test_marglik_plain_backward_matches_pallas_vjp():
     def f(lo, hi, logw, ln):
         return jnp.sum(_pallas(stars, table, ln, lo, hi, logw) * g)
 
-    want = jax.grad(f, argnums=(0, 1, 2, 3))(
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2, 3)))(
         table.lo, table.hi, table.logw, stars.log_norm)
     args = list(_torch_args(stars, table))
     for i in (2, 3, 4, 5):
@@ -145,12 +152,13 @@ def test_marglik_chain_axis():
 # --- Fused table build (kernels 1 and 2) -----------------------------------
 
 
+@functools.cache
 def _iso_problem(upsample, E=24, B=6):
     """base_tpu (iso, base iso, q, coefs) as tests/test_pallas_marglik.py
-    builds them."""
+    builds them (derive_isochrone jitted), once per upsample."""
     grid = jsyn.make_grid(n_eep=E, bands=["U", "B", "V", "R", "I", "J"][:B])
-    base = jderive(grid, jnp.asarray(-0.5), jnp.asarray(0.27),
-                   jnp.asarray(9.3))
+    base = jax.jit(jderive)(grid, jnp.asarray(-0.5), jnp.asarray(0.27),
+                            jnp.asarray(9.3))
     iso = jupsample(base, upsample) if upsample > 1 else base
     q = jnp.linspace(0.0, 1.0, 7)
     coefs = jnp.asarray(np.linspace(1.2, 0.4, B), jnp.float32)
@@ -171,9 +179,9 @@ def test_fused_table_forward(upsample):
     masses through a different log10)."""
     iso, base, q, coefs = _iso_problem(upsample)
     mod, av = 9.7, 0.23
-    want = jlk.build_segment_table_fused(
-        iso, q, jnp.asarray(mod), jnp.asarray(av), coefs, sec_iso=base,
-        interpret=True)
+    want = jax.jit(lambda i, b: jlk.build_segment_table_fused(
+        i, q, jnp.asarray(mod), jnp.asarray(av), coefs, sec_iso=b,
+        interpret=True))(iso, base)
     got = tlk.build_segment_table_fused(
         _to_torch_iso(iso), _t(q), torch.tensor([mod]), torch.tensor([av]),
         _t(coefs), sec_iso=_to_torch_iso(base))
@@ -208,7 +216,7 @@ def test_fused_table_backward(upsample):
         return jnp.sum(t.lo * w_lo) + jnp.sum(jnp.cos(t.hi))
 
     vals = (9.7, 0.23, iso.mags, base.mags, 1.03, 1.01, 0.98)
-    want = jax.grad(f_jax, argnums=tuple(range(7)))(
+    want = jax.jit(jax.grad(f_jax, argnums=tuple(range(7))))(
         *[jnp.asarray(v) for v in vals])
 
     t_iso, t_base = _to_torch_iso(iso), _to_torch_iso(base)
@@ -501,3 +509,32 @@ def test_marglik_skip_outputs_near_threshold():
         assert not bool(tml.marglik_bwd_group_skip(*args, out)[0, 3].any())
         total_groups += marked
     assert total > 0 and total_groups > 0
+
+
+def test_kernel_wrappers_refuse_more_chains_than_the_grid_takes():
+    """The kernels put the chain axis on gridDim.y (at most 65535 blocks):
+    each CUDA wrapper raises on 65536 chains before it looks at the device
+    or launches, and counts no launch."""
+    from base_tpu_torch.ops import build
+    from base_tpu_torch.ops import table as ttb
+
+    C = build.MAX_CHAINS + 1
+    stars, table = _problem(7, 2, 2, B=1)
+    obs, iv, ln, lo, hi, logw, mk = _torch_args(stars, table)
+    big = (obs, iv, ln, *(t.expand(C, *t.shape[1:]).contiguous()
+                          for t in (lo, hi, logw, mk)))
+    node = torch.zeros(C, 1, 3)
+    axis = torch.zeros(C, 2, 1)
+    tbig = (torch.zeros(C, 1, 3), node, node, torch.zeros(C, 1, 2),
+            axis, axis, axis, axis)
+    before = (tml.marglik_fwd_launches, tml.marglik_bwd_launches,
+              ttb.table_fwd_launches, ttb.table_bwd_launches)
+    out = torch.zeros(C, 2)
+    for call in (lambda: tml.marglik_fwd_cuda(*big),
+                 lambda: tml.marglik_bwd_cuda(*big, out, out),
+                 lambda: ttb.table_fwd_cuda(*tbig),
+                 lambda: ttb.table_bwd_cuda(*tbig, tbig[0])):
+        with pytest.raises(ValueError, match="at most 65535"):
+            call()
+    assert (tml.marglik_fwd_launches, tml.marglik_bwd_launches,
+            ttb.table_fwd_launches, ttb.table_bwd_launches) == before

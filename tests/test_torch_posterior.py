@@ -2,6 +2,7 @@
 (with its gradient) against base_tpu on identical float32 inputs, on the
 conftest small grid (E = 48)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +15,6 @@ from base_tpu.grids.isochrone import upsample_isochrone as jupsample
 from base_tpu.model import likelihood as jlk
 from base_tpu.model import posterior as jpost
 from base_tpu.model.stardata import make_ms_stars as jmake_stars
-from base_tpu.sim.scatter import scatter_cluster as jscatter
-from base_tpu.sim.simulate import simulate_cluster as jsimulate
 from base_tpu_torch import convert
 from base_tpu_torch.grids.isochrone import derive_isochrone as tderive
 from base_tpu_torch.grids.isochrone import upsample_isochrone as tupsample
@@ -61,19 +60,14 @@ def test_isochrone_matches_jax(grids, upsample):
     pts = _points(jgrid, 6, upsample)
     tiso = tupsample(tderive(tgrid, *(torch.from_numpy(pts[:, i])
                                       for i in range(3))), upsample)
-    for c, (feh, y, age) in enumerate(pts):
-        jiso = jderive(jgrid, jnp.asarray(feh), jnp.asarray(y),
-                       jnp.asarray(age))
-        if upsample > 1:
-            jiso = jupsample(jiso, upsample)
-        for name in ("mass", "mags", "agb_tip", "min_mass", "mass_sorted"):
-            np.testing.assert_allclose(
-                getattr(tiso, name)[c].numpy(),
-                np.asarray(getattr(jiso, name)), rtol=1e-6, atol=1e-5,
-                err_msg=name)
-        np.testing.assert_array_equal(tiso.valid[c].numpy(),
-                                      np.asarray(jiso.valid))
-        assert bool(tiso.in_bounds[c]) == bool(jiso.in_bounds)
+    jiso = _jax_isochrones(upsample)(jgrid, *(pts[:, i] for i in range(3)))
+    for name in ("mass", "mags", "agb_tip", "min_mass", "mass_sorted"):
+        np.testing.assert_allclose(
+            getattr(tiso, name).numpy(), np.asarray(getattr(jiso, name)),
+            rtol=1e-6, atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(tiso.valid.numpy(), np.asarray(jiso.valid))
+    np.testing.assert_array_equal(tiso.in_bounds.numpy(),
+                                  np.asarray(jiso.in_bounds))
 
 
 @pytest.mark.parametrize("binaries", [True, False])
@@ -95,22 +89,43 @@ def test_segment_table_matches_jax(grids, binaries):
                                   torch.from_numpy(mod), torch.from_numpy(av),
                                   torch.from_numpy(coefs), binaries=binaries,
                                   sec_iso=base)
-    for c, (feh, y, age) in enumerate(pts):
-        jb = jderive(jgrid, jnp.asarray(feh), jnp.asarray(y),
-                     jnp.asarray(age))
-        want = jlk.build_segment_table(
-            jupsample(jb, 2), jnp.asarray(q), jnp.asarray(mod[c]),
-            jnp.asarray(av[c]), jnp.asarray(coefs), binaries=binaries,
-            sec_iso=jb)
-        for name in ("lo", "hi"):
-            np.testing.assert_allclose(getattr(got, name)[c].numpy(),
-                                       np.asarray(getattr(want, name)),
-                                       rtol=0, atol=2e-5, err_msg=name)
-        mask = np.asarray(want.mask)
-        np.testing.assert_array_equal(got.mask[c].numpy(), mask)
-        np.testing.assert_allclose(got.logw[c].numpy()[mask],
-                                   np.asarray(want.logw)[mask],
-                                   rtol=0, atol=1e-4)
+    want = _jax_tables(binaries)(jgrid, *(pts[:, i] for i in range(3)), q,
+                                 mod, av, coefs)
+    for name in ("lo", "hi"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=0, atol=2e-5, err_msg=name)
+    mask = np.asarray(want.mask)
+    np.testing.assert_array_equal(got.mask.numpy(), mask)
+    np.testing.assert_allclose(got.logw.numpy()[mask],
+                               np.asarray(want.logw)[mask], rtol=0,
+                               atol=1e-4)
+
+
+@functools.cache
+def _jax_isochrones(upsample):
+    """base_tpu's derive_isochrone (+ upsample_isochrone) vmapped over
+    (FeH, Y, logAge) points, jitted once per upsample."""
+
+    def one(grid, feh, y, age):
+        iso = jderive(grid, feh, y, age)
+        return jupsample(iso, upsample) if upsample > 1 else iso
+
+    return jax.jit(jax.vmap(one, in_axes=(None, 0, 0, 0)))
+
+
+@functools.cache
+def _jax_tables(binaries):
+    """base_tpu's build_segment_table on the upsample-2 isochrone of each
+    point (secondaries on the base one), vmapped over the points and
+    their modulus and A_V, jitted once per `binaries`."""
+
+    def one(grid, feh, y, age, q, mod, av, coefs):
+        base = jderive(grid, feh, y, age)
+        return jlk.build_segment_table(jupsample(base, 2), q, mod, av, coefs,
+                                       binaries=binaries, sec_iso=base)
+
+    return jax.jit(jax.vmap(one, in_axes=(None, 0, 0, 0, None, 0, 0, None)))
 
 
 def test_ms_stars_match_jax():
@@ -129,13 +144,16 @@ def test_ms_stars_match_jax():
 
 
 @pytest.fixture(scope="module")
-def cluster(small_grid):
-    """24 simulated stars with binaries, as base_tpu builds them."""
-    cat = jsimulate(small_grid, jnp.asarray(TRUTH), 24,
-                    jax.random.PRNGKey(0), percent_binary=0.3)
-    sc = jscatter(cat.mags, jax.random.PRNGKey(1), limit_mag=24.0)
-    return jmake_stars(np.asarray(sc.mags), np.asarray(sc.sigmas),
-                       cm_prior=0.99)
+def cluster(grids):
+    """24 simulated stars with binaries (the port's simulator and noise
+    model: no JAX compile), in base_tpu's star container."""
+    from base_tpu_torch.sim.scatter import scatter_cluster
+
+    gen = torch.Generator().manual_seed(0)
+    cat = tsimulate(grids[1], torch.from_numpy(TRUTH), 24, gen,
+                    percent_binary=0.3)
+    sc = scatter_cluster(cat.mags, gen, limit_mag=24.0)
+    return jmake_stars(sc.mags.numpy(), sc.sigmas.numpy(), cm_prior=0.99)
 
 
 @pytest.mark.parametrize("use_pallas,upsample", [(False, 1), (True, 2)])
@@ -162,11 +180,25 @@ def test_log_post_matches_jax(small_grid, cluster, use_pallas, upsample):
     pts[1:, :5] += rng.normal(0, [0.05, 0.01, 0.05, 0.05, 0.03], (3, 5))
     pts = pts.astype(np.float32)
 
-    want_v, want_g = jax.jit(jax.vmap(jax.value_and_grad(
-        lambda p: jpost.log_post(jm, p))))(jnp.asarray(pts))
+    _check_log_post(jm, tm, pts, tpost.log_post)
+
+
+@functools.cache
+def _jax_value_and_grad():
+    """base_tpu's log_post and its gradient in the 9-vectors, vmapped over
+    points with the model a traced argument: jitted once for every model
+    of one shape."""
+    return jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, m: jpost.log_post(m, p)), in_axes=(0, None)))
+
+
+def _check_log_post(jm, tm, pts, log_post):
+    """log_post(tm, x) and its gradient against base_tpu's at the points
+    [n, 9], with test_log_post_matches_jax's tolerances."""
+    want_v, want_g = _jax_value_and_grad()(jnp.asarray(pts), jm)
     want_v, want_g = np.asarray(want_v), np.asarray(want_g)
     x = torch.from_numpy(pts).requires_grad_(True)
-    got_v = tpost.log_post(tm, x)
+    got_v = log_post(tm, x)
     (got_g,) = torch.autograd.grad(got_v.sum(), x)
     got_v, got_g = got_v.detach().numpy(), got_g.numpy()
 
@@ -175,6 +207,52 @@ def test_log_post_matches_jax(small_grid, cluster, use_pallas, upsample):
                                  3e-4 * np.maximum(np.abs(want_v), 1.0))
     scale = np.abs(want_g).max()
     np.testing.assert_allclose(got_g / scale, want_g / scale, atol=2e-3)
+
+
+def test_config2_density_and_make_logpost_fn_match_jax(small_grid, cluster):
+    """BASELINE config 2's density: 18 of the cluster's stars at membership
+    prior 0.9 and 6 uniform field stars (numpy, from the members' CMD box
+    +- 3 mag) at 0.3, the field density over that box (per-band
+    field_mag_range).  The port's make_logpost_fn (value and gradient) ==
+    base_tpu's log_post, which its make_logpost_fn closes over, with
+    test_log_post_matches_jax's tolerances; the field stars pull the
+    density below the members-only one."""
+    rng = np.random.default_rng(12)
+    mem = np.asarray(cluster.obs_mags)[:18]
+    mem_sig = np.asarray(cluster.obs_sigma)[:18]
+    lo, hi = mem.min(0) - 3.0, mem.max(0) + 3.0
+    field = (lo + rng.random((6, mem.shape[1])) * (hi - lo)).astype(
+        np.float32)
+    mags = np.concatenate([mem, field])
+    sig = np.concatenate([mem_sig, np.full_like(field, 0.05)])
+    cm = np.concatenate([np.full(18, 0.9), np.full(6, 0.3)]).astype(
+        np.float32)
+    kw = dict(cm_prior=cm, field_mag_range=(hi - lo).astype(np.float32))
+    stars = jmake_stars(mags, sig, **kw)
+    jm = jpost.make_single_pop_model(small_grid, stars, TRUTH, PRIOR_SIGMA,
+                                     n_q=6, use_pallas=False)
+    tm = convert.model_from_numpy(
+        _fields(small_grid), _fields(stars), TRUTH, PRIOR_SIGMA,
+        np.asarray(jm.q_grid), np.asarray(jm.abs_coefs), use_pallas=False,
+        device="cpu")
+    own = tmake_stars(mags, sig, **kw, device="cpu")
+    for name in ("log_cm", "log_1m_cm", "field_logdens"):
+        np.testing.assert_allclose(getattr(own, name).numpy(),
+                                   getattr(tm.stars, name).numpy(),
+                                   rtol=1e-6, err_msg=name)
+    rng = np.random.default_rng(13)
+    pts = np.tile(TRUTH, (4, 1))
+    pts[1:, :5] += rng.normal(0, [0.05, 0.01, 0.05, 0.05, 0.03], (3, 5))
+    pts = pts.astype(np.float32)
+    _check_log_post(jm, tm, pts,
+                    lambda m, x: tpost.make_logpost_fn(m)(x))
+    members = convert.model_from_numpy(
+        _fields(small_grid), _fields(jmake_stars(mem, mem_sig, **{
+            "cm_prior": 0.9, "field_mag_range": kw["field_mag_range"]})),
+        TRUTH, PRIOR_SIGMA, np.asarray(jm.q_grid), np.asarray(jm.abs_coefs),
+        use_pallas=False, device="cpu")
+    x = torch.from_numpy(pts[:1])
+    assert float(tpost.log_post(tm, x)) < float(tpost.log_post(members, x))
 
 
 def test_log_post_out_of_hull(grids):
