@@ -60,3 +60,20 @@ def wavelengths(bands: Sequence[str]) -> np.ndarray:
 def absorption_coefs(bands: Sequence[str]) -> np.ndarray:
     """A_X / A_V for each band."""
     return np.array([FILTERS[b][1] for b in bands], dtype=np.float32)
+
+
+def intersect_bands(phot_bands: Sequence[str], model_bands: Sequence[str]):
+    """Active bands = phot header ∩ model grid, in phot-file order.
+
+    Mirrors the reference's runtime filter-set selection [SURVEY.md C13].
+    Returns (band names, indices into phot columns, indices into model
+    bands).
+    """
+    active, phot_idx, model_idx = [], [], []
+    model_pos = {b: i for i, b in enumerate(model_bands)}
+    for i, b in enumerate(phot_bands):
+        if b in model_pos:
+            active.append(b)
+            phot_idx.append(i)
+            model_idx.append(model_pos[b])
+    return tuple(active), np.array(phot_idx), np.array(model_idx)

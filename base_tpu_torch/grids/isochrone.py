@@ -143,6 +143,15 @@ def derive_isochrone(grid: IsochroneGrid, feh: torch.Tensor,
     )
 
 
+def select_grid_bands(grid: IsochroneGrid, band_idx,
+                      bands) -> IsochroneGrid:
+    """Restrict the grid to a band subset (the grid side of the dynamic
+    filter-set intersection: the .phot header ∩ the grid's bands)."""
+    idx = torch.as_tensor(np.asarray(band_idx), device=grid.device)
+    return dataclasses.replace(grid, mags=grid.mags[..., idx],
+                               bands=tuple(bands))
+
+
 def upsample_isochrone(iso: Isochrone, factor: int) -> Isochrone:
     """Insert `factor - 1` linearly-interpolated nodes per EEP segment.
 

@@ -80,3 +80,17 @@ def ess(samples: torch.Tensor) -> torch.Tensor:
     tau = -1.0 + 2.0 * contrib.sum(0)                      # rho_0 twice
     tau = tau.clamp_min(1.0 / n)
     return (n * c) / tau
+
+
+def summarize(samples: torch.Tensor, param_names=None) -> dict:
+    """Host-side convenience: dict of mean/sd/rhat/ess numpy arrays [P]
+    of samples [N, C, P]."""
+    out = dict(
+        mean=samples.mean((0, 1)).cpu().numpy(),
+        sd=samples.std((0, 1), correction=0).cpu().numpy(),
+        rhat=split_rhat(samples).cpu().numpy(),
+        ess=ess(samples).cpu().numpy(),
+    )
+    if param_names is not None:
+        out["names"] = list(param_names)
+    return out

@@ -4,7 +4,7 @@ marking an unobserved band as in the .phot convention.  Noise comes from
 an explicit `torch.Generator`."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -19,6 +19,15 @@ def sigma_model(mags: torch.Tensor, limit_mag=22.0,
     """sigma(m) = sigma_floor + exp(1.09 (m - limit)); `limit_mag` may be
     per band [B]."""
     return sigma_floor + torch.exp(1.09 * (mags - limit_mag))
+
+
+def exposure_limits(exposures: Sequence[float], base_limit: float = 22.0,
+                    *, device: torch.device | str) -> torch.Tensor:
+    """Per-band limiting magnitudes [B] from exposure times: background-
+    limited depth gains 1.25 log10(t) mag (the scatterCluster exposures
+    section)."""
+    t = torch.as_tensor(exposures, dtype=torch.float32, device=device)
+    return base_limit + 1.25 * torch.log10(t.clamp_min(1e-6))
 
 
 def scatter_cluster(

@@ -67,7 +67,7 @@ within 4 sd of the truth, beside phase 4's HMC.
 Config 2 (BASELINE.json config 2, benchmarks/field_membership_tpu.py's
 settings, `run_config2`) is field-star membership: 200 members, every one a
 binary, plus 40 uniform-CMD field stars at membership priors 0.9 / 0.3,
-upsample 4.  Phase 10a: chunked HMC on 32 chains (64 + 64 draws), launches
+upsample 4.  Phase 10a: chunked HMC on 32 chains (32 + 32 draws), launches
 equal to the density calls; 10b: sample_ms_masses on every 16th draw, the
 membership posterior of 8 draws against the CPU plain path, and the
 members-vs-field AUC (>= 0.95).
@@ -84,6 +84,22 @@ at S = 10 000 (the plain [rows, S, T, B] tensors hold 0.65 GB a row),
 kernels 2 and 4 on VI's 8 rows (kernel 4's plain version on 2), and their
 times beside their bounds at both shapes.
 
+Phase 12 (`run_cli`) drives the port's CLI, `base_tpu_torch.tools.main`,
+in-process (so the wrappers' launch counters see it) at the widths of
+conf/base9.yaml: 100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, upsample
+4, 64 chains, dense metric, lMax 48, cut only in depth (64 + 64 draws a
+chain).  12a: simulate -> scatter; the model the CLI builds from that
+.phot (n_q 16, upsample 4, 4 WDs) at 64 chains, each kernel against its
+plain version (kernels 3-4 on the MS and the WD tables) and log_post +
+gradient against the CPU plain path; single-pop --metrics, every kernel's
+launches held to the density calls the CLI counted (kernels 3-4 once per
+segment table: twice with the simulated WDs), 4096 finite .res rows, the
+age within 4 sd of the truth; 12b: sample-mass; 12c: make-cmd on the card
+and through `python -m base_tpu_torch.tools.main make-cmd --device cpu` in
+a subprocess, within CMD_TOL; 12d: run_hmc_checkpointed on the CLI's model
+interrupted after chunk 1 and resumed, bit for bit against an
+uninterrupted run, the CUDA generator's state included.
+
 Every profiler pass (phases 6, 7e and 8e) is padded with idle host time
 (PROFILE_PAD_S) and must hold the records of at least 99% of the launches
 that the kernel wrappers counted in it.
@@ -91,9 +107,11 @@ that the kernel wrappers counted in it.
 The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
 that the per-kernel JSON (config 3's launches and WD-shape numbers,
-config 4's launches and times at its shapes, the launches of phases 9, 10
-and 11, and the times and bounds at config 5's SMC and VI shapes, as
-extra fields).  Without a
+config 4's launches and times at its shapes, the launches of phases 9, 10,
+11 and 12 (`launches_cli`), and the times and bounds at config 5's SMC and
+VI shapes, as extra fields), and before that the `cli` JSON of phase 12
+(each tool's wall, single-pop's samples/s, evals/s, density calls and ESS/s
+of the age).  Without a
 CUDA device it exits non-zero before printing any result.  It imports
 nothing of JAX.
 
@@ -1073,8 +1091,9 @@ PRIOR_MEAN4 = np.concatenate([TRUTH, [0.25, 0.30, 0.5]]).astype(np.float32)
 PRIOR_SIGMA4 = np.concatenate([PRIOR_SIGMA, [-1, -1, -1]]).astype(np.float32)
 N_CHAINS4, N_STARS4, UPSAMPLE4 = 32, 400, 4
 # A short run (the benchmark takes 256 + 1024 draws; halved from 128 + 64
-# when phases 9-11 joined).
-N_WARMUP4, N_SAMPLES4 = 64, 32
+# when phases 9-11 joined, and the warmup halved again when phase 12 did:
+# the VI warm start hands HMC its draws and metric).
+N_WARMUP4, N_SAMPLES4 = 32, 32
 # Reference-parity MH (bench_baseline.py:229-231): 64 chains.
 N_CHAINS_MH4 = 64
 STEP_MH4 = np.zeros(12, np.float32)
@@ -1427,9 +1446,12 @@ def run_nuts_config1(model, hmc_res: dict) -> dict:
 # 36-78): 200 members, every one a binary, plus 40 uniform-CMD field stars
 # at membership priors 0.9 / 0.3, the field density normalised over the box
 # they were drawn from, upsample 4; 32 chains of HMC.  A short run (the
-# benchmark takes 512 + 2048 draws).
+# benchmark takes 512 + 2048 draws), cut from 64 + 64 to 32 + 32 when phase
+# 12 joined: the whole script took 770 s on one H100 machine and 1075 s on
+# another, and a machine 1.5x slower still would leave it little of its
+# 1200 s limit.
 N_MEMBERS2, N_FIELD2, N_CHAINS2 = 200, 40, 32
-N_WARMUP2, N_SAMPLES2 = 64, 64
+N_WARMUP2, N_SAMPLES2 = 32, 32
 # p_member, card vs CPU plain path.  Both evaluate the plain marginal in
 # float32, whose floor reaches ~1e-2 where chi2 cancels at the start of long
 # segments (the conditionals' un-upsampled table; 2^-7 to 2^-3 between an
@@ -1837,6 +1859,249 @@ def run_config5(dev) -> dict:
     return dict(vi=vi, smc=smc, kernels=kernels5)
 
 
+# Phase 12: the port's CLI (base_tpu_torch.tools.main) end to end, called
+# in-process so that the wrappers' launch counters see it, at the widths of
+# conf/base9.yaml (100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, the
+# default upsample 4, 64 chains, dense metric, lMax 48).  Only the depth is
+# cut: 64 warmup transitions and 64 draws a chain.  conf/base9.yaml says
+# usePallas: false, which the card refuses; settings read a later `--set
+# mcmc.usePallas=auto` over that YAML boolean as false (as base_tpu's do),
+# so the kernels are asked for with true.
+CLI_SETS = ("mcmc.warmup=64", "mcmc.runIter=4096", "mcmc.usePallas=true")
+# make-cmd on the card against the CPU: one unit of the .4f format plus the
+# float32 floor of the magnitudes.
+CMD_TOL = 2e-4
+# 12d: checkpointed HMC on the CLI's model, interrupted after chunk 1.  Its
+# trajectories are cut to 4 leapfrog steps (the CLI's 48 took 146 s on an
+# H100 for the three runs; resuming does not depend on the length).
+N_CHAINS_RESUME, N_WARMUP_RESUME, N_SAMPLES_RESUME, CHUNK_RESUME = 16, 32, 32, 8
+L_MAX_RESUME = 4
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def _cmd_rows(path: str):
+    """(stages, values [rows, 1 + B]) of a make-cmd file."""
+    raw = np.loadtxt(path, skiprows=1, dtype=str, ndmin=2)
+    return raw[:, 0], raw[:, 1:].astype(np.float64)
+
+
+def run_resume(s, phot: str, ckpt: str, dev) -> dict:
+    """Phase 12d: run_hmc_checkpointed on the CLI's model (16 chains, 32 +
+    32 draws, chunk 8, l_max 4), interrupted by an on_window that raises after
+    chunk 1, then resumed from its checkpoint with a freshly seeded
+    generator; against an uninterrupted run, bit for bit: draws, log
+    posteriors, final chain states and the CUDA generator's state."""
+    from base_tpu_torch.inference import driver
+    from base_tpu_torch.inference.hmc import HMCConfig
+    from base_tpu_torch.io.phot import read_phot
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.tools import main as cli
+
+    model = cli._build_model_from_phot(s, read_phot(phot), dev)
+    tr = post.default_transform(model)
+    fz = post.make_logpost_z_fn(model, tr)
+    cfg = HMCConfig(n_warmup=N_WARMUP_RESUME, n_samples=N_SAMPLES_RESUME,
+                    l_max=L_MAX_RESUME, target_accept=s.mcmc.targetAccept,
+                    dense_mass=s.mcmc.denseMass,
+                    free_mask=post.free_mask(model))
+    z0 = tr.inverse(torch.as_tensor(s.cluster.start_vector(), device=dev))
+    init = cli._start_chains(z0, N_CHAINS_RESUME, s)
+
+    def run(path, on_window=None):
+        gen = cli._gen(dev, s.mcmc.seed, 1)
+        zs, info = driver.run_hmc_checkpointed(
+            fz, init, gen, cfg, driver.DriverConfig(
+                checkpoint_path=path, chunk_size=CHUNK_RESUME,
+                on_window=on_window))
+        return zs, info, gen.get_state()
+
+    def stop(ci, zs, lps):
+        if ci == 1:
+            raise _Interrupt
+
+    t0 = time.perf_counter()
+    want = run(None)
+    try:
+        run(ckpt, stop)
+        raise AssertionError("12d: the interrupting on_window never ran")
+    except _Interrupt:
+        pass
+    got = run(ckpt)
+    torch.cuda.synchronize()
+    fields = dict(
+        samples=(want[0], got[0]),
+        logposts=(want[1]["logposts"], got[1]["logposts"]),
+        final_z=(want[1]["final_states"].z, got[1]["final_states"].z),
+        final_logpost=(want[1]["final_states"].logpost,
+                       got[1]["final_states"].logpost),
+        step_size=(want[1]["step_size"], got[1]["step_size"]),
+        inv_mass=(want[1]["inv_mass"], got[1]["inv_mass"]),
+        generator_state=(want[2], got[2]))
+    same = {k: torch.equal(a, b) for k, (a, b) in fields.items()}
+    res = dict(wall_s=time.perf_counter() - t0, bit_identical=same,
+               accept=float(got[1]["accept_prob"]))
+    log("  resume " + json.dumps(res))
+    if not all(same.values()):
+        raise AssertionError(f"12d: resumed run differs: {same}")
+    return res
+
+
+def check_cli_model(s, table, dev) -> dict:
+    """Phase 12a's model check: the model the CLI builds from its .phot
+    (n_q 16, upsample 4, its WDs with carbonicity and the IFMR free), at
+    the CLI's chains around its start: each kernel against its plain
+    version (kernels 3-4 on the MS and the WD segment tables), and
+    log_post + gradient on the card against the CPU plain path, twice bit
+    for bit.  Returns {kernel: max abs error}; raises past the
+    tolerances."""
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.tools import main as cli
+
+    model = cli._build_model_from_phot(s, table, dev)
+    z = chain_points(model, 0.05, seed=1, truth=s.cluster.start_vector(),
+                     n_chains=s.mcmc.chains, free=post.free_mask(model))
+    n_wd = 0 if model.wd_stars is None else model.wd_stars.obs_mags.shape[0]
+    log(f"phase 12a: the CLI's model ({model.stars.obs_mags.shape[0]} MS "
+        f"stars, {n_wd} WDs, n_q {model.q_grid.shape[-1]}, upsample "
+        f"{model.upsample}, {z.shape[0]} chains): kernels vs plain, density "
+        f"card vs CPU")
+    errs = check_kernels(model, z, "cli")
+    if model.wd_stars is not None:
+        wd = check_marglik(wd_marglik_inputs(model, z), "cli WD")
+        errs = {k: max(v, wd.get(k, 0.0)) for k, v in errs.items()}
+    check_density(model, cli._build_model_from_phot(s, table, "cpu"), z)
+    return errs
+
+
+def run_cli(dev, hmc_res: dict) -> dict:
+    """Phase 12: (a) simulate -> scatter; the CLI's model from that .phot
+    checked (check_cli_model); single-pop --metrics, each
+    kernel's launches over single-pop equal to the density calls the CLI
+    counted (kernels 3-4 once per segment table: twice with WDs), 4096
+    finite .res rows, the age within 4 sd of the simulated truth, split
+    R-hat of the age beside phase 4's; (b) sample-mass; (c) make-cmd on
+    the card and, as a subprocess through `python -m`, on the CPU, within
+    CMD_TOL; (d) checkpointed HMC interrupted and resumed, bit for bit."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from base_tpu_torch.io.phot import read_phot
+    from base_tpu_torch.io.res import read_res
+    from base_tpu_torch.io.samples import read_star_samples
+    from base_tpu_torch.io.settings import load_settings
+    from base_tpu_torch.tools import main as cli
+
+    root = Path(__file__).resolve().parent
+    conf = str(root / "conf" / "base9.yaml")
+    sets = [a for x in CLI_SETS for a in ("--set", x)]
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "run")
+        args = ["--config", conf, "--outputFileBase", base, *sets,
+                "--device", str(dev)]
+
+        def tool(name, *extra):
+            t0 = time.perf_counter()
+            cli.main([name, *args, *extra])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+
+        log("phase 12a: simulate -> scatter -> single-pop --metrics")
+        tool("simulate")
+        tool("scatter", "--photFile", base + ".sim.phot")
+        table = read_phot(base + ".phot")
+        n_wd = int((table.stage == 3).sum())
+        errs = check_cli_model(load_settings(conf, list(CLI_SETS)), table,
+                               dev)
+        reset_launch_counts()
+        metrics_path = os.path.join(tmp, "m.jsonl")
+        tool("single-pop", "--photFile", base + ".phot",
+             "--metrics", metrics_path)
+        counts = launch_counts()
+        with open(metrics_path) as f:
+            metrics = [json.loads(line) for line in f][-1]
+        calls = metrics["density_calls"]
+        tables = 2 if n_wd else 1
+        want = {k: calls * (tables if k.startswith("marglik") else 1)
+                for k in counts}
+        chain = read_res(base + ".res")
+        age = chain.params[:, 0]
+        res = dict(
+            stars=int(table.n_stars), wds=n_wd, density_calls=calls,
+            launches=counts, rows=int(chain.params.shape[0]),
+            samples_per_s=metrics["samples_per_sec"],
+            evals_per_s=metrics["evals_per_sec"],
+            single_pop_wall_s=metrics["wall_s"],
+            calls_per_s=calls / metrics["wall_s"],
+            accept=metrics["accept"], ess_age=metrics["ess_age"],
+            ess_age_per_s=metrics["ess_age"] / metrics["wall_s"],
+            rhat_age=metrics["rhat_age"],
+            rhat_age_phase4=hmc_res["rhat"]["logAge"],
+            age=dict(mean=float(age.mean()), sd=float(age.std()),
+                     truth=float(load_settings(conf).cluster
+                                 .starting_logAge)))
+        res["max_abs_err"] = errs
+        log("  single-pop " + json.dumps(res))
+        if counts != want:
+            raise AssertionError(f"12a: launches {counts} for {calls} "
+                                 f"density calls and {tables} tables "
+                                 f"(want {want})")
+        if res["rows"] != 4096 or not (np.isfinite(chain.params).all()
+                                       and np.isfinite(chain.logpost).all()):
+            raise AssertionError("12a: the .res is not 4096 finite rows")
+        if not abs(res["age"]["mean"] - res["age"]["truth"]) < \
+                4.0 * res["age"]["sd"]:
+            raise AssertionError("12a: the CLI's age misses the truth")
+
+        log("phase 12b: sample-mass")
+        tool("sample-mass", "--photFile", base + ".phot")
+        ids, cols = read_star_samples(base + ".massSamples")
+        mids, mcols = read_star_samples(base + ".membership")
+        n_ms = int((table.stage == 1).sum())
+        pm = mcols["pMember"]
+        res["sample_mass"] = dict(stars=len(ids), draws=int(pm.shape[0]),
+                                  p_member_mean=float(pm.mean()))
+        if not (len(ids) == n_ms == cols["mass"].shape[1] and mids == ids
+                and ((pm >= 0) & (pm <= 1)).all()
+                and np.isfinite(cols["mass"]).all()):
+            raise AssertionError("12b: sample-mass output malformed")
+
+        log("phase 12c: make-cmd on the card, and on the CPU via python -m")
+        tool("make-cmd")
+        cpu_base = os.path.join(tmp, "cpu")
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "base_tpu_torch.tools.main", "make-cmd",
+             "--config", conf, "--outputFileBase", cpu_base, *sets,
+             "--device", "cpu"],
+            cwd=root, check=True, timeout=600)
+        walls["make-cmd (cpu, subprocess)"] = time.perf_counter() - t0
+        st_g, v_g = _cmd_rows(base + ".cmd")
+        st_c, v_c = _cmd_rows(cpu_base + ".cmd")
+        if st_g.shape != st_c.shape or not (st_g == st_c).all():
+            raise AssertionError("12c: card and CPU CMDs differ in rows")
+        cmd_err = float(np.abs(v_g - v_c).max())
+        res["make_cmd"] = dict(rows=int(len(st_g)),
+                               wd_rows=int((st_g == "WD").sum()),
+                               max_abs_err_vs_cpu=cmd_err)
+        log("  make-cmd " + json.dumps(res["make_cmd"]))
+        if not cmd_err <= CMD_TOL:
+            raise AssertionError(f"12c: CMD card vs CPU {cmd_err:.2e}")
+
+        log(f"phase 12d: checkpointed HMC, {N_CHAINS_RESUME} chains, "
+            f"{N_WARMUP_RESUME} + {N_SAMPLES_RESUME}, chunk {CHUNK_RESUME}, "
+            f"l_max {L_MAX_RESUME}, interrupted after chunk 1 and resumed")
+        res["resume"] = run_resume(load_settings(conf, list(CLI_SETS)),
+                                   base + ".phot",
+                                   os.path.join(tmp, "resume.ckpt"), dev)
+    res["tool_wall_s"] = walls
+    return res
+
+
 def kernel_outputs(models: dict, z) -> dict:
     """Kernels 1 and 4 on phase 2's inputs at each shape, with the inputs,
     for --save-outputs."""
@@ -1978,6 +2243,9 @@ def main() -> None:
     # 11. Config 5's single-card leg: VI + tempered SMC at 10 000 stars.
     c5 = run_config5(torch.device("cuda", 0))
 
+    # 12. The CLI end to end at conf/base9.yaml's widths.
+    cli = run_cli(torch.device("cuda", 0), hmc_res)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report[name]
@@ -1998,11 +2266,14 @@ def main() -> None:
             **c4["kernels"][name],
             launches_nuts=nuts["launches"][name],
             launches_config2=c2["hmc"]["launches"][name],
-            **c5["kernels"][name]))
+            **c5["kernels"][name],
+            launches_cli=cli["launches"][name],
+            max_abs_err_cli=cli["max_abs_err"][name]))
         if not all(math.isfinite(v) for k, v in kernels[-1].items()
                    if k.startswith(("ms", "plain_ms", "bound_ms",
                                     "device_ms"))):
             raise AssertionError(f"{name}: a time is missing or not finite")
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

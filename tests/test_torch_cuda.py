@@ -527,3 +527,35 @@ def test_smc_folded_replicates_equal_single_runs(cuda):
         assert torch.equal(ir["betas"], info["betas"][r])
         assert torch.equal(ir["log_evidence"], info["log_evidences"][r])
         assert torch.equal(zr, z[256 * r:256 * (r + 1)])
+
+
+def test_cli_single_pop_launches_equal_density_calls(cuda, tmp_path):
+    """The port's CLI (simulate -> scatter -> single-pop --metrics) on the
+    card at a small depth: each kernel's launches over single-pop equal
+    the density calls that the CLI counted, kernels 3-4 once per segment
+    table (twice when the photometry holds WDs)."""
+    import json
+
+    from base_tpu_torch.io.phot import read_phot
+    from base_tpu_torch.tools import main as cli
+
+    cfg = tmp_path / "cli.yaml"
+    cfg.write_text("simCluster:\n  nStars: 40\nmcmc:\n  chains: 8\n"
+                   "  runIter: 64\n  warmup: 8\n  lMax: 4\n  upsample: 2\n")
+    base = str(tmp_path / "run")
+    args = ["--config", str(cfg), "--outputFileBase", base,
+            "--device", "cuda"]
+    cli.main(["simulate", *args])
+    cli.main(["scatter", *args, "--photFile", base + ".sim.phot"])
+    before = (tb.table_fwd_launches, tb.table_bwd_launches,
+              ml.marglik_fwd_launches, ml.marglik_bwd_launches)
+    cli.main(["single-pop", *args, "--photFile", base + ".phot",
+              "--metrics", base + ".jsonl"])
+    after = (tb.table_fwd_launches, tb.table_bwd_launches,
+             ml.marglik_fwd_launches, ml.marglik_bwd_launches)
+    with open(base + ".jsonl") as f:
+        calls = json.loads(f.readlines()[-1])["density_calls"]
+    tables = 2 if (read_phot(base + ".phot").stage == 3).any() else 1
+    assert calls > 0
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        calls, calls, tables * calls, tables * calls)

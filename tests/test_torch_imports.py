@@ -1,16 +1,27 @@
 """The port stands alone: no module of base_tpu_torch, and neither
-chip_smoke.py nor scripts/torch_profiler_probe.py, imports base_tpu or jax; and the port's own copies of base_tpu's JAX-free
-constants and filter tables equal the originals."""
+chip_smoke.py nor scripts/torch_profiler_probe.py, imports base_tpu or jax
+(nor PyYAML, which the card's machine need not have); and the port's own
+copies of base_tpu's JAX-free constants, filter tables, settings, .res
+columns and model families equal the originals."""
 import ast
+import dataclasses
 from pathlib import Path
+
+import numpy as np
 
 from base_tpu import constants as jconst
 from base_tpu.grids import filters as jfilt
+from base_tpu.grids import load as jload
+from base_tpu.io import res as jres
+from base_tpu.io import settings as jsettings
 from base_tpu_torch import constants as tconst
 from base_tpu_torch.grids import filters as tfilt
+from base_tpu_torch.grids import load as tload
+from base_tpu_torch.io import res as tres
+from base_tpu_torch.io import settings as tsettings
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("base_tpu", "jax")
+FORBIDDEN = ("base_tpu", "jax", "yaml")
 
 
 def _imported_modules(path: Path):
@@ -29,7 +40,11 @@ def test_port_imports_no_base_tpu_or_jax():
     assert len(files) > 20
     for module in ("model/multipop.py", "inference/vi.py",
                    "inference/mh.py", "inference/nuts.py",
-                   "inference/smc.py"):
+                   "inference/smc.py", "io/settings.py", "io/yaml_subset.py",
+                   "io/phot.py", "io/res.py", "io/samples.py",
+                   "io/sqlite_store.py", "io/checkpoint.py",
+                   "utils/metrics.py", "grids/load.py",
+                   "inference/driver.py", "tools/main.py"):
         assert ROOT / "base_tpu_torch" / module in files
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
@@ -60,3 +75,20 @@ def test_port_constants_and_filters_equal_base_tpu():
             == jfilt.absorption_coefs(bands)).all()
     assert tfilt.absorption_coefs(bands).dtype == jfilt.absorption_coefs(
         bands).dtype
+
+
+def test_port_host_copies_equal_base_tpu():
+    """The JAX-free copies of the host layer: Settings() defaults, the .res
+    columns, the model families and the synthetic grids' axis spans."""
+    assert repr(dataclasses.asdict(tsettings.Settings())) == repr(
+        dataclasses.asdict(jsettings.Settings()))
+    assert tres.RES_COLUMNS == jres.RES_COLUMNS
+    assert tload.MS_FAMILIES == jload.MS_FAMILIES
+    assert tload.WD_FAMILIES == jload.WD_FAMILIES
+    for family in jload.MS_FAMILIES:
+        s = jsettings.load_settings(None, [f"models.msRgbModel={family}"])
+        grid = jload.load_ms_grid(s)
+        spans = tload.SYNTHETIC_SPANS[family]
+        for axis in ("feh", "y", "age"):
+            assert (np.linspace(*spans[axis]).astype(np.float32)
+                    == np.asarray(getattr(grid, axis))).all(), (family, axis)
