@@ -5,9 +5,11 @@
 
 namespace btt {
 
-// Bands are held per thread in unrolled register arrays; the Python
-// wrappers refuse B > MAX_B.
-constexpr int MAX_B = 16;
+// Bands are held per thread in unrolled register arrays sized by a band
+// class: NARROW_B for B <= 16 (the instances every config up to eight bands
+// runs) and MAX_B for 17..32.  The Python wrappers refuse B > MAX_B.
+constexpr int NARROW_B = 16;
+constexpr int MAX_B = 32;
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);

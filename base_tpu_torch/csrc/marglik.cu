@@ -3,8 +3,9 @@
 //
 // Replaces base_tpu/ops/pallas_marglik.py `_fwd_kernel` (launched from
 // `_fwd`) and `_bwd_kernel` (launched from `_bwd_rule`), residual-form band
-// loop only (the `matmul=True` variant is not ported).  Per chain c, star s
-// and segment t, with chi2(u) = alpha u^2 - 2 beta u + gamma on u in [0, 1]:
+// loop (the `matmul=True` form is kernels 3m and 4m, marglik_mm.cu).  Per
+// chain c, star s and segment t, with chi2(u) = alpha u^2 - 2 beta u +
+// gamma on u in [0, 1]:
 //   term = exp(core - m) * width,  core = -chi2_min/2 + logw
 //   out[c, s] = m + log(sum_t term + 1e-15) + log_norm[s]
 // The backward recomputes core and width, takes the softmax weights from the
@@ -63,106 +64,27 @@
 //   warps' partials meet in shared memory and each (output, segment) is
 //   summed over the warps in warp order.  No atomics: same-seed runs are
 //   bit-identical.
-// - B is a template argument (B = 1..16 behind one switch), so the band
-//   arrays live in registers with no spill.
+// - B is a template argument (B = 1..32 behind one switch), so the band
+//   arrays live in registers.  From B = 23 the warps' partials pass 48 KB
+//   of shared memory, which the launch asks for (`allow_smem`).
 //
-// phi_interval_scaled below is a line-for-line copy of
-// base_tpu_torch/ops/special.py (and base_tpu/ops/special.py): the A-S
-// 7.1.26 erf, the +-3.5 Mills switch and the min(unear_sq, 13) clamp.  The
-// library is built without --use_fast_math: the erf polynomial, expf in the
-// far tails and the 1e-15 / 1e-12 floors need IEEE float32.
-#include "common.cuh"
+// Bands in kernel 3: o[] and w[] are sized by a band class (common.cuh),
+// one instance for B <= 16 and one for 17..32; the staged tile is sized
+// for 48 KB at any B up to 32 (`fwd_tile`).
+//
+// core_width, phi_interval_scaled, the online merge and the moments are in
+// marglik_core.cuh, shared with the matmul forms (marglik_mm.cu).
+#include "marglik_core.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float SQRT_2PI = 2.5066282746310002f;
-constexpr float INV_SQRT2 = 0.7071067811865476f;
-constexpr float INV_SQRT_2PI = 0.3989422804014327f;
-constexpr float ALPHA_EPS = 1e-12f;
-constexpr float FLAT_EPS = 3e-7f;
 constexpr int FWD_WARPS = 8;      // stars (warps) per forward block
-constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int BWD_WARPS = 8;      // star slices (warps) per backward block
 constexpr int BWD_STAR_TILE = 128;  // stars staged at a time
 // Kernel 4's skip rule (ops/marglik.py `marglik_bwd_skip`).
 constexpr float SKIP_BELOW = -105.0f;
 constexpr float SKIP_LOG_WIDTH = 16.0f;
 constexpr float SKIP_REL = 1e-5f;
-
-__device__ __forceinline__ float signf(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-__device__ __forceinline__ float erf_poly_from_e(float ax, float e) {
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return 1.0f - poly * e;
-}
-
-__device__ __forceinline__ float mills_scaled(float u_abs, float extra_log) {
-  const float u = fmaxf(u_abs, 1.0f);
-  const float iu2 = 1.0f / (u * u);
-  const float series = 1.0f - iu2 + 3.0f * iu2 * iu2;
-  return INV_SQRT_2PI / u * series * expf(fminf(extra_log, 0.0f));
-}
-
-__device__ __forceinline__ void phi_interval_scaled(float u0, float u1,
-                                                    float* d,
-                                                    float* unear_sq) {
-  const float x0 = u0 * INV_SQRT2;
-  const float x1 = u1 * INV_SQRT2;
-  const float e0 = expf(-x0 * x0);
-  const float e1 = expf(-x1 * x1);
-  const float erf0 = signf(x0) * erf_poly_from_e(fabsf(x0), e0);
-  const float erf1 = signf(x1) * erf_poly_from_e(fabsf(x1), e1);
-  const float d_erf = fmaxf(0.5f * (erf1 - erf0), 0.0f);
-
-  const bool one_sided = (u0 * u1) > 0.0f;
-  const float un = one_sided ? fminf(u0 * u0, u1 * u1) : 0.0f;
-  const float erf_scale = expf(0.5f * fminf(un, 13.0f));
-
-  const bool right = u0 > 3.5f;
-  const bool left = u1 < -3.5f;
-  const float au0 = fabsf(u0);
-  const float au1 = fabsf(u1);
-  const float u_near = right ? au0 : au1;
-  const float u_far = right ? au1 : au0;
-  const float m_near = mills_scaled(u_near, 0.0f);
-  const float m_far = mills_scaled(u_far, 0.5f * (un - u_far * u_far));
-  const float d_asym = fmaxf(m_near - m_far, 0.0f);
-  *d = (right || left) ? d_asym : d_erf * erf_scale;
-  *unear_sq = un;
-}
-
-// The per-(star, segment) pieces shared by forward and backward
-// (base_tpu/ops/pallas_marglik.py `_core_width_of`).
-struct Segment {
-  float core, width, u0, u1, width_s, unear_sq, mu, rsq;
-  bool live;
-};
-
-__device__ __forceinline__ Segment core_width(float alpha, float beta,
-                                              float gamma, float logw) {
-  Segment g;
-  const float ac = fmaxf(alpha, ALPHA_EPS);
-  g.rsq = rsqrtf(ac);
-  const float inv_a = g.rsq * g.rsq;
-  g.mu = beta * inv_a;
-  const float resid = fmaxf(gamma - beta * g.mu, 0.0f);
-  const float sq = ac * g.rsq;
-  g.u0 = -g.mu * sq;
-  g.u1 = sq - g.mu * sq;
-  phi_interval_scaled(g.u0, g.u1, &g.width_s, &g.unear_sq);
-  g.live = alpha > FLAT_EPS;
-  const float mid = gamma - beta + 0.25f * alpha;
-  g.core = (g.live ? -0.5f * (resid + g.unear_sq) : -0.5f * mid) + logw;
-  g.width = g.live ? SQRT_2PI * g.rsq * g.width_s : 1.0f;
-  return g;
-}
 
 // Segments per staged tile: a multiple of 32 (so lane l keeps t = l mod 32
 // across tiles) whose band-major rows, padded by one word, fit in 48 KB.
@@ -173,15 +95,12 @@ int fwd_tile(int T, int B) {
   return whole < fit ? whole : fit;
 }
 
-__device__ __forceinline__ void merge(float& m, float& s, float m2,
-                                      float s2) {
-  const float M = fmaxf(m, m2);
-  s = __fadd_rn(__fmul_rn(s, expf(m - M)), __fmul_rn(s2, expf(m2 - M)));
-  m = M;
-}
-
-// At most 64 registers a thread, so that four blocks (32 warps) fit an SM.
-__global__ void __launch_bounds__(FWD_WARPS * 32, 4)
+// MB: the band class (common.cuh).  At most 64 registers a thread for the
+// narrow class, so that four blocks (32 warps) fit an SM; 128 for the wide
+// one, whose o[] and w[] alone take 64.
+template <int MB>
+__global__ void __launch_bounds__(FWD_WARPS * 32,
+                                  MB <= btt::NARROW_B ? 4 : 2)
 marglik_fwd_kernel(const float* __restrict__ obs,
                                    const float* __restrict__ iv,
                                    const float* __restrict__ log_norm,
@@ -201,9 +120,9 @@ marglik_fwd_kernel(const float* __restrict__ obs,
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
   const bool active = s < S;                // warp-uniform
-  float o[btt::MAX_B], w[btt::MAX_B];
+  float o[MB], w[MB];
 #pragma unroll
-  for (int b = 0; b < btt::MAX_B; ++b) {
+  for (int b = 0; b < MB; ++b) {
     o[b] = (active && b < B) ? obs[static_cast<size_t>(s) * B + b] : 0.0f;
     w[b] = (active && b < B) ? iv[static_cast<size_t>(s) * B + b] : 0.0f;
   }
@@ -232,7 +151,7 @@ marglik_fwd_kernel(const float* __restrict__ obs,
       if (!(s_mk[tt] > 0.5f)) continue;  // masked segments add exactly 0
       float alpha = 0.0f, beta = 0.0f, gamma = 0.0f;
 #pragma unroll
-      for (int b = 0; b < btt::MAX_B; ++b) {
+      for (int b = 0; b < MB; ++b) {
         if (b < B) {
           const float d = s_d[b * TP + tt];
           const float r = o[b] - s_lo[b * TP + tt];
@@ -330,9 +249,11 @@ constexpr size_t bwd_smem_floats(int B) {
 // One block per (group of 32 segments, chain); lane = segment, warp w
 // takes the w-th of BWD_WARPS runs of consecutive stars of each staged
 // tile (at most 16, one a lane for the group rule).  Four blocks an SM up
-// to 8 bands (64 registers a thread), two above.
+// to 8 bands (64 registers a thread), two up to 16, one above (l, d, a_lo
+// and a_hi take 4B registers).
 template <int B>
-__global__ void __launch_bounds__(BWD_WARPS * 32, B <= 8 ? 4 : 2)
+__global__ void __launch_bounds__(BWD_WARPS * 32,
+                                  B <= 8 ? 4 : (B <= btt::NARROW_B ? 2 : 1))
 marglik_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sh[];
   float* s_o = sh;                          // [BWD_STAR_TILE, B]
@@ -429,26 +350,8 @@ marglik_bwd_kernel(const BwdArgs a) {
       const Segment g = core_width(alpha, beta, gamma, lw);
       // exp(core - out') * width = term / sum: the softmax weight.
       const float gw = s_g[ss] * expf(g.core - outp) * g.width;
-      // unear_sq is u0 * u0 or u1 * u1 rounded, so one of these exponents
-      // must come out exactly 0: without FMA contraction.  An FMA leaves
-      // the rounding error of u0^2 (~1e-3 at u0 ~ 150, a star before a
-      // steep WD segment), and <t> = mu + sigma r1, which cancels to
-      // ~sigma / u0 there, moves by ~|mu| times that.
-      const float phi_s0 = INV_SQRT_2PI *
-          expf(0.5f * fminf(__fsub_rn(g.unear_sq, __fmul_rn(g.u0, g.u0)), 0.0f));
-      const float phi_s1 = INV_SQRT_2PI *
-          expf(0.5f * fminf(__fsub_rn(g.unear_sq, __fmul_rn(g.u1, g.u1)), 0.0f));
-      const float zs = fmaxf(g.width_s, 1e-12f);
-      const float r1 = (phi_s0 - phi_s1) / zs;
-      const float sigma = g.rsq;
-      float t1 = btt::clamp01(g.mu + sigma * r1);
-      float t2 = sigma * sigma * (1.0f + (g.u0 * phi_s0 - g.u1 * phi_s1) / zs) +
-                 g.mu * g.mu + 2.0f * g.mu * sigma * r1;
-      t2 = btt::clamp01(t2);
-      if (!g.live) {  // midpoint branch: the t -> 1/2 point moments
-        t1 = 0.5f;
-        t2 = 0.25f;
-      }
+      float t1, t2;
+      moments(g, &t1, &t2);
       const float ga = gw * (-0.5f) * t2;
       const float gb = gw * t1;
       const float gc = gw * (-0.5f);
@@ -501,8 +404,10 @@ marglik_bwd_kernel(const BwdArgs a) {
 template <int B>
 int launch_bwd(const BwdArgs& a, int C, cudaStream_t st) {
   const dim3 grid((a.T + 31) / 32, C);
-  marglik_bwd_kernel<B><<<grid, BWD_WARPS * 32,
-                          bwd_smem_floats(B) * sizeof(float), st>>>(a);
+  const size_t smem = bwd_smem_floats(B) * sizeof(float);
+  const int err = allow_smem(marglik_bwd_kernel<B>, smem);
+  if (err != 0) return err;
+  marglik_bwd_kernel<B><<<grid, BWD_WARPS * 32, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());  // launch status
 }
 
@@ -525,9 +430,13 @@ extern "C" int btt_marglik_fwd(const float* obs, const float* iv,
   dim3 grid((S + FWD_WARPS - 1) / FWD_WARPS, C);
   const size_t smem =
       (static_cast<size_t>(2 * B) * (TS + 1) + 2 * TS) * sizeof(float);
-  marglik_fwd_kernel<<<grid, FWD_WARPS * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (B <= btt::NARROW_B)
+    marglik_fwd_kernel<btt::NARROW_B><<<grid, FWD_WARPS * 32, smem, st>>>(
+        obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS);
+  else
+    marglik_fwd_kernel<btt::MAX_B><<<grid, FWD_WARPS * 32, smem, st>>>(
+        obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS);
   return static_cast<int>(cudaGetLastError());  // launch status
 }
 

@@ -44,6 +44,12 @@
 //   per tile (scratch from the wrapper).  Pass 2 (one block per chain) sums
 //   the tiles' partials in tile order.  No float atomics, so same-seed runs
 //   are bit-identical.
+//
+// Bands: the per-thread arrays (mags2, d mags2, the node sums) are sized by
+// a band class (common.cuh), one instance of each kernel for B <= 16 and
+// one for 17..32, picked at launch.  A launch whose shared memory passes 48
+// KB asks for it first (`allow_smem`), up to Hopper's 227 KB a block;
+// ops/table.py refuses a shape past that.
 #include "common.cuh"
 
 namespace {
@@ -181,10 +187,10 @@ size_t window_smem(int B, int E2) {
 // The node's window lo..hi (ops/table.py `hat_window`: two binary searches;
 // a NaN query takes the whole axis) and mags2[b] = sum_e secT[b, e] W[e](q)
 // over it, e in order.  Entries outside it add s_sec * 0.0, so mags2 is the
-// dense loop's to the bit.
+// dense loop's to the bit.  MB is the band class (common.cuh).
+template <int MB>
 __device__ __forceinline__ void window_mags(const float* sh, float q, int B,
-                                            int E2,
-                                            float (&mags2)[btt::MAX_B]) {
+                                            int E2, float (&mags2)[MB]) {
   const float* s_xl = sh + B * E2;
   const float* s_idl = s_xl + E2;
   const float* s_xr = s_xl + 2 * E2;
@@ -194,13 +200,13 @@ __device__ __forceinline__ void window_mags(const float* sh, float q, int B,
   const int lo = isnan(q) ? 0 : count_below<true>(s_rz, E2, q);
   const int hi = isnan(q) ? E2 - 1 : count_below<false>(s_lz, E2, q) - 1;
 #pragma unroll
-  for (int b = 0; b < btt::MAX_B; ++b) mags2[b] = 0.0f;
+  for (int b = 0; b < MB; ++b) mags2[b] = 0.0f;
   for (int e = lo; e <= hi; ++e) {
     float up, dn;
     hat(q, s_xl[e], s_idl[e], s_xr[e], s_idr[e], &up, &dn);
     const float w = smoothstep(up) + smoothstep(dn) - 1.0f;
 #pragma unroll
-    for (int b = 0; b < btt::MAX_B; ++b)
+    for (int b = 0; b < MB; ++b)
       if (b < B) mags2[b] += sh[b * E2 + e] * w;
   }
 }
@@ -216,6 +222,8 @@ int allow_smem(Kernel kernel, size_t smem) {
 
 // --- Kernel 1 -------------------------------------------------------------
 
+// MB: the band class, NARROW_B or MAX_B (one instance each).
+template <int MB>
 __global__ void table_fwd_kernel(const float* __restrict__ app1,
                                  const float* __restrict__ m2,
                                  const float* __restrict__ lit,
@@ -232,11 +240,11 @@ __global__ void table_fwd_kernel(const float* __restrict__ app1,
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const size_t node = static_cast<size_t>(c) * N + n;
-  float mags2[btt::MAX_B];
-  window_mags(sh, m2[node], B, E2, mags2);
+  float mags2[MB];
+  window_mags<MB>(sh, m2[node], B, E2, mags2);
   const float l = lit[node];
 #pragma unroll
-  for (int b = 0; b < btt::MAX_B; ++b) {
+  for (int b = 0; b < MB; ++b) {
     if (b < B) {
       const size_t o = (static_cast<size_t>(c) * B + b) * N + n;
       const float f1 = expf(-LN10_04 * app1[o]);
@@ -261,6 +269,7 @@ size_t bwd_node_smem(int B, int E2) {
   return floats * sizeof(float);
 }
 
+template <int MB>
 __global__ void table_bwd_node_kernel(
     const float* __restrict__ app1, const float* __restrict__ m2,
     const float* __restrict__ lit, const float* __restrict__ secT,
@@ -306,22 +315,22 @@ __global__ void table_bwd_node_kernel(
     const float q = m2[cN + n];
     lo = isnan(q) ? 0 : count_below<true>(s_rz, E2, q);
     hi = isnan(q) ? E2 - 1 : count_below<false>(s_lz, E2, q) - 1;
-    float mags2[btt::MAX_B];
+    float mags2[MB];
 #pragma unroll
-    for (int b = 0; b < btt::MAX_B; ++b) mags2[b] = 0.0f;
+    for (int b = 0; b < MB; ++b) mags2[b] = 0.0f;
     for (int e = lo; e <= hi; ++e) {
       float up, dn;
       hat(q, s_xl[e], s_idl[e], s_xr[e], s_idr[e], &up, &dn);
       const float w = smoothstep(up) + smoothstep(dn) - 1.0f;
 #pragma unroll
-      for (int b = 0; b < btt::MAX_B; ++b)
+      for (int b = 0; b < MB; ++b)
         if (b < B) mags2[b] += s_sec[b * E2 + e] * w;
     }
     const float l = lit[cN + n];
-    float dmv[btt::MAX_B];
+    float dmv[MB];
     float dl = 0.0f;
 #pragma unroll
-    for (int b = 0; b < btt::MAX_B; ++b) {
+    for (int b = 0; b < MB; ++b) {
       dmv[b] = 0.0f;
       if (b < B) {
         const size_t o = cBN + static_cast<size_t>(b) * N + n;
@@ -342,7 +351,7 @@ __global__ void table_bwd_node_kernel(
       hat(q, s_xl[e], s_idl[e], s_xr[e], s_idr[e], &up, &dn);
       float dW = 0.0f;
 #pragma unroll
-      for (int b = 0; b < btt::MAX_B; ++b)
+      for (int b = 0; b < MB; ++b)
         if (b < B) dW += s_sec[b * E2 + e] * dmv[b];
       const float dup = dW * (6.0f * up * (1.0f - up));
       const float ddn = dW * (6.0f * dn * (1.0f - dn));
@@ -367,9 +376,9 @@ __global__ void table_bwd_node_kernel(
     const int e = item - grp * E2;
     const float xl_e = s_xl[e], idl_e = s_idl[e];
     const float xr_e = s_xr[e], idr_e = s_idr[e];
-    float acc[btt::MAX_B];
+    float acc[MB];
 #pragma unroll
-    for (int b = 0; b < btt::MAX_B; ++b) acc[b] = 0.0f;
+    for (int b = 0; b < MB; ++b) acc[b] = 0.0f;
     float a_xl = 0.0f, a_idl = 0.0f, a_xr = 0.0f, a_idr = 0.0f;
     const int t_end = min((grp + 1) * per, BWD_NODES);
     for (int c0 = grp * per; c0 < t_end; c0 += 64) {
@@ -389,7 +398,7 @@ __global__ void table_bwd_node_kernel(
         const float w = smoothstep(up) + smoothstep(dn) - 1.0f;
         float dW = 0.0f;
 #pragma unroll
-        for (int b = 0; b < btt::MAX_B; ++b) {
+        for (int b = 0; b < MB; ++b) {
           if (b < B) {
             const float dmb = s_dm[b * BWD_NODES + tt];
             dW += s_sec[b * E2 + e] * dmb;
@@ -407,7 +416,7 @@ __global__ void table_bwd_node_kernel(
     float* dst = G > 1 ? s_part + static_cast<size_t>(grp) * nb * E2
                        : tile_part;
 #pragma unroll
-    for (int b = 0; b < btt::MAX_B; ++b)
+    for (int b = 0; b < MB; ++b)
       if (b < B) dst[b * E2 + e] = acc[b];
     dst[B * E2 + e] = a_xl;
     dst[(B + 1) * E2 + e] = a_idl;
@@ -450,6 +459,36 @@ __global__ void table_bwd_axis_kernel(const float* __restrict__ part,
   }
 }
 
+template <int MB>
+int launch_table_fwd(const float* app1, const float* m2, const float* lit,
+                     const float* secT, const float* xl, const float* idl,
+                     const float* xr, const float* idr, float* out, int C,
+                     int B, int N, int E2, cudaStream_t st) {
+  const size_t smem = window_smem(B, E2);
+  const int err = allow_smem(table_fwd_kernel<MB>, smem);
+  if (err != 0) return err;
+  dim3 grid((N + FWD_NODES - 1) / FWD_NODES, C);
+  table_fwd_kernel<MB><<<grid, FWD_NODES, smem, st>>>(
+      app1, m2, lit, secT, xl, idl, xr, idr, out, B, N, E2);
+  return static_cast<int>(cudaGetLastError());  // launch status
+}
+
+template <int MB>
+int launch_table_bwd(const float* app1, const float* m2, const float* lit,
+                     const float* secT, const float* xl, const float* idl,
+                     const float* xr, const float* idr, const float* g,
+                     float* dapp1, float* dm2, float* dlit, float* part,
+                     int C, int B, int N, int E2, cudaStream_t st) {
+  const int tiles = (N + BWD_NODES - 1) / BWD_NODES;
+  const size_t smem = bwd_node_smem(B, E2);
+  const int err = allow_smem(table_bwd_node_kernel<MB>, smem);
+  if (err != 0) return err;
+  table_bwd_node_kernel<MB><<<dim3(tiles, C), BWD_NODES, smem, st>>>(
+      app1, m2, lit, secT, xl, idl, xr, idr, g, dapp1, dm2, dlit, part, B, N,
+      E2);
+  return static_cast<int>(cudaGetLastError());  // launch status
+}
+
 }  // namespace
 
 extern "C" int btt_table_fwd(const float* app1, const float* m2,
@@ -459,14 +498,12 @@ extern "C" int btt_table_fwd(const float* app1, const float* m2,
                              int C, int B, int N, int E2, int device,
                              void* stream) {
   cudaSetDevice(device);
-  const size_t smem = window_smem(B, E2);
-  const int err = allow_smem(table_fwd_kernel, smem);
-  if (err != 0) return err;
-  dim3 grid((N + FWD_NODES - 1) / FWD_NODES, C);
-  table_fwd_kernel<<<grid, FWD_NODES, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      app1, m2, lit, secT, xl, idl, xr, idr, out, B, N, E2);
-  return static_cast<int>(cudaGetLastError());  // launch status
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (B <= btt::NARROW_B)
+    return launch_table_fwd<btt::NARROW_B>(app1, m2, lit, secT, xl, idl, xr,
+                                           idr, out, C, B, N, E2, st);
+  return launch_table_fwd<btt::MAX_B>(app1, m2, lit, secT, xl, idl, xr, idr,
+                                      out, C, B, N, E2, st);
 }
 
 extern "C" long long btt_table_bwd_scratch(int C, int B, int N, int E2) {
@@ -486,14 +523,15 @@ extern "C" int btt_table_bwd(const float* app1, const float* m2,
   cudaSetDevice(device);
   const auto st = static_cast<cudaStream_t>(stream);
   const int tiles = (N + BWD_NODES - 1) / BWD_NODES;
-  const size_t smem = bwd_node_smem(B, E2);
-  const int serr = allow_smem(table_bwd_node_kernel, smem);
-  if (serr != 0) return serr;
-  table_bwd_node_kernel<<<dim3(tiles, C), BWD_NODES, smem, st>>>(
-      app1, m2, lit, secT, xl, idl, xr, idr, g, dapp1, dm2, dlit, part, B, N,
-      E2);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err =
+      B <= btt::NARROW_B
+          ? launch_table_bwd<btt::NARROW_B>(app1, m2, lit, secT, xl, idl, xr,
+                                            idr, g, dapp1, dm2, dlit, part, C,
+                                            B, N, E2, st)
+          : launch_table_bwd<btt::MAX_B>(app1, m2, lit, secT, xl, idl, xr,
+                                         idr, g, dapp1, dm2, dlit, part, C, B,
+                                         N, E2, st);
+  if (err != 0) return err;
   table_bwd_axis_kernel<<<C, AXIS_THREADS, 0, st>>>(part, dsec, dxl, didl,
                                                     dxr, didr, B, E2, tiles);
   return static_cast<int>(cudaGetLastError());  // launch status

@@ -89,6 +89,16 @@ def load_packed_isochrones(path: str, name: str = "", *,
     )
 
 
+def save_packed_isochrones(path: str, grid: IsochroneGrid) -> None:
+    """Write a packed .npz isochrone container (base_tpu's on-disk format:
+    the arrays of `_PACKED` and `bands`)."""
+    np.savez_compressed(
+        path,
+        **{k: getattr(grid, k).detach().cpu().numpy() for k in _PACKED},
+        bands=np.asarray(grid.bands),
+    )
+
+
 def load_wd_cooling(settings: Settings, *,
                     device: torch.device | str) -> wdc.WdCoolingGrid:
     family = settings.models.wdModel.lower()

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "btt_table_bwd": [_P] * 18 + [_I] * 4 + [_I, _P],
     "btt_marglik_fwd": [_P] * 8 + [_I] * 4 + [_I, _P],
     "btt_marglik_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
+    "btt_marglik_mm_fwd": [_P] * 8 + [_I] * 4 + [_I, _P],
+    "btt_marglik_mm_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
 }
 
 
@@ -147,6 +149,18 @@ def launch(name: str, tensors, sizes) -> None:
     if status != 0:
         msg = lib.btt_error_string(status).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({status})")
+
+
+# Bands the kernels take (csrc/common.cuh MAX_B): more than the 29 filters
+# of grids/filters.py, so any band set a run can name.
+MAX_BANDS = 32
+
+
+def check_bands(kind: str, B: int) -> None:
+    """Raise unless the band count fits the kernels' band classes."""
+    if B > MAX_BANDS:
+        raise ValueError(f"{kind} kernels take at most {MAX_BANDS} bands, "
+                         f"got {B}")
 
 
 # The kernels put the chain axis on gridDim.y, which CUDA caps at 65535.

@@ -19,6 +19,14 @@ Almost every softmax weight is an exact 0.0 in float32 (98% at config-1):
 `marglik_bwd_group_skip` (before any band contraction, for 32 segments at
 once) and `marglik_bwd_skip` (after it, per element) are the rules by which
 kernel 4 finds them and skips the rest of their work.
+
+`fused_log_marginals(..., matmul=True)` is base_tpu's MXU form: alpha, beta
+and gamma from the expanded quadratic as five [S, B] @ [B, T] products
+(`_abg_mm`, base_tpu's `_abg_matmul`), the cotangents by five star-axis
+products, after a per-band centering of obs, lo and hi.  Kernels 3m and 4m
+(csrc/marglik_mm.cu) carry it on the card; `marglik_mm_fwd_plain` and
+`marglik_mm_bwd_plain` are their plain versions.  Off by default, as in
+base_tpu: the expansion cancels in float32, more so as B grows.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ _FLAT_EPS = 3e-7   # erf-cancellation guard: flat segments use the midpoint
 # Kernel launches since the last reset; the wrappers add one per launch.
 marglik_fwd_launches = 0
 marglik_bwd_launches = 0
+marglik_mm_fwd_launches = 0
+marglik_mm_bwd_launches = 0
 
 
 def _abg(obs, inv_var, lo, hi):
@@ -47,6 +57,20 @@ def _abg(obs, inv_var, lo, hi):
     beta = (iv * r * d).sum(-1)
     gamma = (iv * r * r).sum(-1)
     return alpha, beta, gamma, d, r, iv
+
+
+def _abg_mm(obs, inv_var, lo, hi):
+    """Kernel 3m's band contractions alpha, beta, gamma [C, S, T]: base_tpu's
+    `_abg_matmul`, the quadratic expanded into five [S, B] @ [C, B, T]
+    products (float32 throughout) and gamma clamped at 0."""
+    ivo = inv_var * obs                                  # [S, B]
+    c0 = (ivo * obs).sum(1)[:, None]                     # [S, 1]
+    dT = (hi - lo).transpose(1, 2)                       # [C, B, T]
+    loT = lo.transpose(1, 2)
+    alpha = inv_var @ (dT * dT)
+    beta = ivo @ dT - inv_var @ (loT * dT)
+    gamma = c0 - 2.0 * (ivo @ loT) + inv_var @ (loT * loT)
+    return alpha, beta, gamma.clamp_min(0.0)
 
 
 def _core_width(alpha, beta, gamma, logw, mask):
@@ -78,6 +102,17 @@ def marglik_fwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask):
     {0, 1} float.  Linear-space accumulation: exp(core - m) * width summed
     over segments, one log per star."""
     alpha, beta, gamma, _, _, _ = _abg(obs, inv_var, lo, hi)
+    return _log_marginals(alpha, beta, gamma, log_norm, logw, mask)
+
+
+def marglik_mm_fwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask):
+    """Plain version of kernel 3m: marglik_fwd_plain on the expanded
+    contractions (`_abg_mm`)."""
+    return _log_marginals(*_abg_mm(obs, inv_var, lo, hi), log_norm, logw,
+                          mask)
+
+
+def _log_marginals(alpha, beta, gamma, log_norm, logw, mask):
     mask = (mask > 0.5)[:, None, :]                      # [C, 1, T]
     core, width, _ = _core_width(alpha, beta, gamma, logw[:, None, :], mask)
     m = torch.amax(core, dim=-1, keepdim=True).clamp_min(NEG_INF)
@@ -95,6 +130,40 @@ def marglik_bwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask, out, g):
     """Plain version of kernel 4: analytic (dlo [C, T, B], dhi [C, T, B],
     dlogw [C, T]) for the cotangent g [C, S] of marglik_fwd_plain."""
     alpha, beta, gamma, d, r, iv = _abg(obs, inv_var, lo, hi)
+    gw, ga, gb, gc = _cotangent_weights(alpha, beta, gamma, log_norm, logw,
+                                        mask, out, g)
+    ga, gb, gc = ga[..., None], gb[..., None], gc[..., None]
+    # d alpha/d lo = -2 iv d; d beta/d lo = -iv (d + r); d gamma/d lo =
+    # -2 iv r; d alpha/d hi = 2 iv d; d beta/d hi = iv r.
+    dlo = (iv * (-2.0 * ga * d - gb * (d + r) - 2.0 * gc * r)).sum(1)
+    dhi = (iv * (2.0 * ga * d + gb * r)).sum(1)
+    return dlo, dhi, gw.sum(1)
+
+
+def marglik_mm_bwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask, out,
+                         g):
+    """Plain version of kernel 4m: marglik_bwd_plain's cotangents through
+    the expanded contractions, the star axis contracted by five products
+    (base_tpu's `_bwd_kernel` under `mm`): A1 = iv^T ga, B1 = iv^T gb, B2 =
+    (iv obs)^T gb, C1 = iv^T gc, C2 = (iv obs)^T gc, each [C, B, T]."""
+    gw, ga, gb, gc = _cotangent_weights(*_abg_mm(obs, inv_var, lo, hi),
+                                        log_norm, logw, mask, out, g)
+    ivT = inv_var.T
+    ivoT = (inv_var * obs).T                             # [B, S]
+    A1, B1, C1 = ivT @ ga, ivT @ gb, ivT @ gc
+    B2, C2 = ivoT @ gb, ivoT @ gc
+    dT = (hi - lo).transpose(1, 2)
+    loT = lo.transpose(1, 2)
+    dhi = 2.0 * dT * A1 + (B2 - loT * B1)
+    dlo = -2.0 * dT * A1 - (dT * B1 + B2 - loT * B1) - 2.0 * (C2 - loT * C1)
+    return (dlo.transpose(1, 2).contiguous(),
+            dhi.transpose(1, 2).contiguous(), gw.sum(1))
+
+
+def _cotangent_weights(alpha, beta, gamma, log_norm, logw, mask, out, g):
+    """(gw, ga, gb, gc) [C, S, T]: g times the softmax weight, and its
+    products with d log I / d(alpha, beta, gamma) = (-<t^2>/2, <t>, -1/2)
+    from the [0,1]-truncated Gaussian moments."""
     mask = (mask > 0.5)[:, None, :]
     core, width, aux = _core_width(alpha, beta, gamma, logw[:, None, :], mask)
     u0, u1, width_s, unear_sq, live, mu, rsq = aux
@@ -118,14 +187,7 @@ def marglik_bwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask, out, g):
     # point moments.
     t1 = torch.where(live, t1, torch.full_like(t1, 0.5))
     t2 = torch.where(live, t2, torch.full_like(t2, 0.25))
-    ga = (gw * (-0.5) * t2)[..., None]
-    gb = (gw * t1)[..., None]
-    gc = (gw * (-0.5))[..., None]
-    # d alpha/d lo = -2 iv d; d beta/d lo = -iv (d + r); d gamma/d lo =
-    # -2 iv r; d alpha/d hi = 2 iv d; d beta/d hi = iv r.
-    dlo = (iv * (-2.0 * ga * d - gb * (d + r) - 2.0 * gc * r)).sum(1)
-    dhi = (iv * (2.0 * ga * d + gb * r)).sum(1)
-    return dlo, dhi, gw.sum(1)
+    return gw, gw * (-0.5) * t2, gw * t1, gw * (-0.5)
 
 
 # Kernel 4's skip rule: expf of anything below about -104 is 0.0f.
@@ -227,8 +289,7 @@ def _checked(args):
     obs, lo = args[0], args[3]
     S, B = obs.shape
     C, T = lo.shape[:2]
-    if B > 16:
-        raise ValueError(f"marginal kernels take at most 16 bands, got {B}")
+    build.check_bands("marginal", B)
     build.check_chains(C)
     shapes = [(S, B), (S, B), (S,), (C, T, B), (C, T, B), (C, T), (C, T)]
     for name, t, shape in zip(_NAMES, args, shapes):
@@ -236,13 +297,29 @@ def _checked(args):
     return C, S, T, B
 
 
+def _launch_fwd(symbol, args):
+    C, S, T, B = _checked(args)
+    out = torch.empty((C, S), dtype=torch.float32, device=args[0].device)
+    build.launch(symbol, [*args, out], (C, S, T, B))
+    return out
+
+
+def _launch_bwd(symbol, args, out, g):
+    C, S, T, B = _checked(args)
+    build.check("out", out, (C, S))
+    build.check("g", g, (C, S))
+    dlo = torch.empty_like(args[3])
+    dhi = torch.empty_like(args[4])
+    dlogw = torch.empty_like(args[5])
+    build.launch(symbol, [*args, out, g, dlo, dhi, dlogw], (C, S, T, B))
+    return dlo, dhi, dlogw
+
+
 def marglik_fwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf):
     """Kernel 3 on the card: [C, S]."""
     global marglik_fwd_launches
-    args = (obs, inv_var, log_norm, lo, hi, logw, maskf)
-    C, S, T, B = _checked(args)
-    out = torch.empty((C, S), dtype=torch.float32, device=obs.device)
-    build.launch("btt_marglik_fwd", [*args, out], (C, S, T, B))
+    out = _launch_fwd("btt_marglik_fwd",
+                      (obs, inv_var, log_norm, lo, hi, logw, maskf))
     marglik_fwd_launches += 1
     return out
 
@@ -250,38 +327,59 @@ def marglik_fwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf):
 def marglik_bwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf, out, g):
     """Kernel 4 on the card: (dlo, dhi, dlogw) as marglik_bwd_plain."""
     global marglik_bwd_launches
-    args = (obs, inv_var, log_norm, lo, hi, logw, maskf)
-    C, S, T, B = _checked(args)
-    build.check("out", out, (C, S))
-    build.check("g", g, (C, S))
-    dlo = torch.empty_like(lo)
-    dhi = torch.empty_like(hi)
-    dlogw = torch.empty_like(logw)
-    build.launch("btt_marglik_bwd", [*args, out, g, dlo, dhi, dlogw],
-                 (C, S, T, B))
+    grads = _launch_bwd("btt_marglik_bwd",
+                        (obs, inv_var, log_norm, lo, hi, logw, maskf), out, g)
     marglik_bwd_launches += 1
-    return dlo, dhi, dlogw
+    return grads
+
+
+def marglik_mm_fwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf):
+    """Kernel 3m on the card: [C, S] as marglik_mm_fwd_plain."""
+    global marglik_mm_fwd_launches
+    out = _launch_fwd("btt_marglik_mm_fwd",
+                      (obs, inv_var, log_norm, lo, hi, logw, maskf))
+    marglik_mm_fwd_launches += 1
+    return out
+
+
+def marglik_mm_bwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf, out,
+                        g):
+    """Kernel 4m on the card: (dlo, dhi, dlogw) as marglik_mm_bwd_plain."""
+    global marglik_mm_bwd_launches
+    grads = _launch_bwd("btt_marglik_mm_bwd",
+                        (obs, inv_var, log_norm, lo, hi, logw, maskf), out, g)
+    marglik_mm_bwd_launches += 1
+    return grads
+
+
+# (kernel, plain version) of each form, forward and backward.
+_FORMS = {
+    False: ((marglik_fwd_cuda, marglik_fwd_plain),
+            (marglik_bwd_cuda, marglik_bwd_plain)),
+    True: ((marglik_mm_fwd_cuda, marglik_mm_fwd_plain),
+           (marglik_mm_bwd_cuda, marglik_mm_bwd_plain)),
+}
 
 
 class _FusedMarglik(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, *args):
-        if args[0].is_cuda:
-            out = marglik_fwd_cuda(*args)
-        else:
-            out = marglik_fwd_plain(*args)
+    def forward(ctx, mm, *args):
+        kernel, plain = _FORMS[mm][0]
+        out = kernel(*args) if args[0].is_cuda else plain(*args)
+        ctx.mm = mm
         ctx.save_for_backward(*args, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
         *args, out = ctx.saved_tensors
+        kernel, plain = _FORMS[ctx.mm][1]
         if g.is_cuda:
-            dlo, dhi, dlogw = marglik_bwd_cuda(*args, out, g.contiguous())
+            dlo, dhi, dlogw = kernel(*args, out, g.contiguous())
         else:
-            dlo, dhi, dlogw = marglik_bwd_plain(*args, out, g)
-        dln = g.sum(0) if ctx.needs_input_grad[2] else None
-        return None, None, dln, dlo, dhi, dlogw, None
+            dlo, dhi, dlogw = plain(*args, out, g)
+        dln = g.sum(0) if ctx.needs_input_grad[3] else None
+        return None, None, None, dln, dlo, dhi, dlogw, None
 
 
 def fused_log_marginals(
@@ -292,7 +390,26 @@ def fused_log_marginals(
     hi: torch.Tensor,        # [C, T, B]
     logw: torch.Tensor,      # [C, T]
     maskf: torch.Tensor,     # [C, T] float {0, 1}
+    matmul: bool | None = None,
 ) -> torch.Tensor:
     """Per-star log marginal cluster likelihood of every chain: [C, S].
-    Differentiable with respect to log_norm, lo, hi and logw."""
-    return _FusedMarglik.apply(obs, inv_var, log_norm, lo, hi, logw, maskf)
+    Differentiable with respect to log_norm, lo, hi and logw.
+
+    `matmul`: base_tpu's argument, the expanded form (kernels 3m, 4m).  obs,
+    lo and hi are first centered per band (`center_bands`: a constant that
+    cancels from every obs - model difference) to bound the expansion's
+    float32 cancellation.  Default False, as in base_tpu."""
+    if matmul:
+        obs, lo, hi = center_bands(obs, inv_var, lo, hi)
+    return _FusedMarglik.apply(bool(matmul), obs, inv_var, log_norm, lo, hi,
+                               logw, maskf)
+
+
+def center_bands(obs, inv_var, lo, hi):
+    """base_tpu's centering for the matmul form: (obs, lo, hi) less, per
+    band, the mean magnitude of the stars observed in it (a constant
+    without gradient), and obs 0 where unobserved."""
+    seen = inv_var > 0
+    c = (torch.where(seen, obs, 0.0).sum(0)
+         / seen.sum(0).clamp_min(1)).detach()
+    return torch.where(seen, obs - c, 0.0), lo - c, hi - c

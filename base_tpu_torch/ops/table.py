@@ -146,14 +146,30 @@ def table_bwd_plain(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr, g):
     return dapp1, dm2, dlit, dsec, dxl, didl, dxr, didr
 
 
+# Shared memory a block may ask for on Hopper (227 KB); csrc/table.cu asks
+# for more than 48 KB where a launch needs it.
+MAX_SMEM_BYTES = 227 * 1024
+_BWD_NODES = 128   # csrc/table.cu BWD_NODES
+
+
+def smem_bytes(B: int, E2: int) -> int:
+    """Shared memory of kernel 1 and of kernel 2's node pass, whichever is
+    larger (csrc/table.cu `window_smem`, `bwd_node_smem`)."""
+    groups = _BWD_NODES // E2 if E2 < _BWD_NODES else 1
+    node = (B + 6) * E2 + (B + 2) * _BWD_NODES
+    if groups > 1:
+        node += groups * (B + 4) * E2
+    return 4 * max((B + 6) * E2, node)
+
+
 def _shapes(app1N, secT):
     C, B, N = app1N.shape
     E2 = secT.shape[2]
-    if B > 16:
-        raise ValueError(f"table kernels take at most 16 bands, got {B}")
-    if (B + 4) * E2 * 4 > 48 * 1024:   # the staged axis + secondary table
-        raise ValueError(f"table kernels stage (B + 4) * E2 floats in 48 KB "
-                         f"of shared memory; got B={B}, E2={E2}")
+    build.check_bands("table", B)
+    if smem_bytes(B, E2) > MAX_SMEM_BYTES:   # staged axis, table, windows
+        raise ValueError(f"table kernels need {smem_bytes(B, E2)} bytes of "
+                         f"shared memory at B={B}, E2={E2}; a block has "
+                         f"{MAX_SMEM_BYTES}")
     build.check_chains(C)
     node = (C, 1, N)
     axis = (C, E2, 1)

@@ -13,6 +13,7 @@ sampleWDMass/, makeCMD/, multiPopMcmc/ — SURVEY.md E1-E7]:
   sample-wd-mass  sampleWDMass: per-WD precursor/WD-mass conditionals
   make-cmd        makeCMD: model isochrone CMD at given params
   multi-pop       multiPopMcmc: the two-population model, .mp.res
+  convert-models  pack upstream-format text grids into .npz (grids.parse)
 
 Every tool shares one YAML config (+ `--set a.b=c` overrides), like the
 reference's single base9.yaml [SURVEY.md C12]; base_tpu's configs and
@@ -38,8 +39,8 @@ k)` seeded `seed + k * 2**32` (`_gen`), with base_tpu's j and k:
 The draws follow base_tpu's distributions, not its random bits.  MH runs
 every chain in one batched density call a step (mh.run_adaptive_mh).
 
-Not yet ported: `--mesh` (the parallel layer) and `convert-models`
-(grids.parse); both exit non-zero with a message.
+Not yet ported: `--mesh` (the parallel layer); it exits non-zero with a
+message.
 """
 from __future__ import annotations
 
@@ -851,13 +852,22 @@ def cmd_make_cmd(args) -> None:
 
 
 def cmd_convert_models(args) -> None:
-    """Packing upstream text grids into .npz (base_tpu's grids.parse) is
-    not ported yet."""
-    raise SystemExit(
-        "convert-models: not ported yet (it waits for base_tpu_torch's "
-        "grids.parse); the .npz grids that `python -m base_tpu.tools.main "
-        "convert-models` writes load here unchanged"
-    )
+    """Pack upstream-format text grids into the .npz containers load.py
+    serves (ingestion pipeline for the separately-distributed model data,
+    SURVEY.md L0/§7 step 0).  Host work: no device is used."""
+    from base_tpu_torch.grids.parse import convert_model_directory
+
+    s = _settings(args)
+    src = args.src or s.files.modelDirectory
+    dst = args.dst or s.files.modelDirectory
+    if not src or not dst:
+        raise SystemExit("convert-models: pass --src <textdir> --dst "
+                         "<npzdir> (or set modelDirectory)")
+    written = convert_model_directory(src, dst)
+    for w in written:
+        print(f"convert-models: wrote {w}")
+    if not written:
+        print("convert-models: no recognized grid files found")
 
 
 TOOLS = {

@@ -87,18 +87,38 @@ times beside their bounds at both shapes.
 Phase 12 (`run_cli`) drives the port's CLI, `base_tpu_torch.tools.main`,
 in-process (so the wrappers' launch counters see it) at the widths of
 conf/base9.yaml: 100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, upsample
-4, 64 chains, dense metric, lMax 48, cut only in depth (64 + 64 draws a
+4, 64 chains, dense metric, lMax 48, cut only in depth (32 + 32 draws a
 chain).  12a: simulate -> scatter; the model the CLI builds from that
-.phot (n_q 16, upsample 4, 4 WDs) at 64 chains, each kernel against its
-plain version (kernels 3-4 on the MS and the WD tables) and log_post +
-gradient against the CPU plain path; single-pop --metrics, every kernel's
-launches held to the density calls the CLI counted (kernels 3-4 once per
-segment table: twice with the simulated WDs), 4096 finite .res rows, the
+.phot (n_q 16, upsample 4, 4 WDs) at 16 of its 64 chains, each kernel
+against its plain version (kernels 3-4 on the MS and the WD tables) and
+log_post + gradient against the CPU plain path; single-pop --metrics,
+every kernel's launches held to the density calls the CLI counted
+(kernels 3-4 once per segment table: twice with the simulated WDs), 2048
+finite .res rows, the
 age within 4 sd of the truth; 12b: sample-mass; 12c: make-cmd on the card
 and through `python -m base_tpu_torch.tools.main make-cmd --device cpu` in
 a subprocess, within CMD_TOL; 12d: run_hmc_checkpointed on the CLI's model
 interrupted after chunk 1 and resumed, bit for bit against an
 uninterrupted run, the CUDA generator's state included.
+
+Phase 13 (`run_wide`) is the wide band set through the grid ingest.  13a:
+the port's writers put upstream-format text grids in a directory
+(conf/base9.yaml's MS family on its synthetic axis spans in all 29 bands of
+grids/filters.py, carbonicity-resolved WD cooling tracks, Bergeron DA/DB
+tables in the same bands); `python -m base_tpu_torch.tools.main
+convert-models --src --dst` packs them (subprocess); a table is read back
+through io.native (the library must load: no numpy fallback) and rows go
+out through its AsyncWriter.  13b: simulate -> scatter -> single-pop
+--metrics at conf/base9.yaml's widths on those grids with B = 29, cut to
+32 + 32 draws a chain; the CLI's model checked as in 12a on 16 chains
+(kernels 1-4 against plain at B = 29, density against the CPU); every
+kernel's launches held to the density calls (kernels 3m/4m never), the age
+within 4 sd of the truth; kernels 1-4 timed at B = 29 beside their bounds.
+13c: the matmul form (kernels 3m and 4m, `fused_log_marginals(...,
+matmul=True)`) against its plain version and the float64 residual form at
+the bench shapes (B = 8) and on 13b's MS table (B = 29), its own path
+(value + gradient calls, launches counted over it alone), and the device
+ms of both forms at both widths beside their bounds.
 
 Every profiler pass (phases 6, 7e and 8e) is padded with idle host time
 (PROFILE_PAD_S) and must hold the records of at least 99% of the launches
@@ -108,12 +128,13 @@ The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
 that the per-kernel JSON (config 3's launches and WD-shape numbers,
 config 4's launches and times at its shapes, the launches of phases 9, 10,
-11 and 12 (`launches_cli`), and the times and bounds at config 5's SMC and
-VI shapes, as extra fields), and before that the `cli` JSON of phase 12
-(each tool's wall, single-pop's samples/s, evals/s, density calls and ESS/s
-of the age).  Without a
-CUDA device it exits non-zero before printing any result.  It imports
-nothing of JAX.
+11, 12 (`launches_cli`) and 13 (`launches_wide`), the times and bounds at
+config 5's SMC and VI shapes and at B = 29 (`b29`), as extra fields;
+kernels 3m and 4m have rows of their own), before that the `wide` JSON of
+phase 13, and before that the `cli` JSON of phase 12 (each tool's wall,
+single-pop's samples/s, evals/s, density calls and ESS/s of the age).
+Without a CUDA device it exits non-zero before printing any result.  It
+imports nothing of JAX.
 
     python3 chip_smoke.py --times-only [--root DIR]
 
@@ -172,6 +193,15 @@ KERNELS = {
                     "base_tpu/ops/pallas_marglik.py:174"),
     "marglik_bwd": ("base_tpu_torch/csrc/marglik.cu",
                     "base_tpu/ops/pallas_marglik.py:217"),
+}
+# The matmul form of kernels 3 and 4 (fused_log_marginals(..., matmul=True),
+# base_tpu's `_abg_matmul` branch of `_fwd_kernel` and the five products of
+# `_bwd_kernel`'s): no main path takes it, phase 13c drives it alone.
+MM_KERNELS = {
+    "marglik_mm_fwd": ("base_tpu_torch/csrc/marglik_mm.cu",
+                       "base_tpu/ops/pallas_marglik.py:107"),
+    "marglik_mm_bwd": ("base_tpu_torch/csrc/marglik_mm.cu",
+                       "base_tpu/ops/pallas_marglik.py:261"),
 }
 # Device function names of each kernel in a profiler trace (kernel 2 was
 # one `table_bwd_kernel` before its redesign; --root may time that form).
@@ -408,22 +438,21 @@ def check_density(model_gpu, model_cpu, z) -> None:
         raise AssertionError("card density + gradient not deterministic")
 
 
-def launch_counts() -> dict:
+def _counter_module(name: str):
     from base_tpu_torch.ops import marglik as ml
     from base_tpu_torch.ops import table as tb
 
-    return {"table_fwd": tb.table_fwd_launches,
-            "table_bwd": tb.table_bwd_launches,
-            "marglik_fwd": ml.marglik_fwd_launches,
-            "marglik_bwd": ml.marglik_bwd_launches}
+    return tb if name.startswith("table") else ml
+
+
+def launch_counts(names=tuple(KERNELS)) -> dict:
+    """{kernel: launches its wrapper counted since the last reset}."""
+    return {n: getattr(_counter_module(n), f"{n}_launches") for n in names}
 
 
 def reset_launch_counts() -> None:
-    from base_tpu_torch.ops import marglik as ml
-    from base_tpu_torch.ops import table as tb
-
-    tb.table_fwd_launches = tb.table_bwd_launches = 0
-    ml.marglik_fwd_launches = ml.marglik_bwd_launches = 0
+    for n in (*KERNELS, *MM_KERNELS):
+        setattr(_counter_module(n), f"{n}_launches", 0)
 
 
 def counted(fn):
@@ -695,23 +724,29 @@ def skip_shares(marg_in) -> dict | None:
         warp_skip_share=1.0 - n["need_pairs"] / pairs)
 
 
+def _marglik_sizes(marg_in) -> tuple[int, int, int]:
+    """(live (chain, star, segment) elements, bytes of the forward, bytes
+    of the backward): each input read once, each output written once."""
+    S, B = marg_in[0].shape
+    C, T = marg_in[3].shape[:2]
+    f = 4                                           # bytes per float
+    inputs = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
+    return (S * int((marg_in[6] > 0.5).sum()), inputs + f * C * S,
+            inputs + f * 2 * C * S + f * (2 * C * T * B + C * T))
+
+
 def marglik_work(marg_in, bwd: bool = True) -> dict:
     """{kernel: (flops, bytes)} of kernels 3 and 4 on these inputs (see
     kernel_work), with kernel 4's dense count and its skip shares; kernel
     3's alone without `bwd`."""
     S, B = marg_in[0].shape
-    C, T = marg_in[3].shape[:2]
-    live = S * int((marg_in[6] > 0.5).sum())        # (chain, star, segment)
-    f = 4                                           # bytes per float
-    marg_in_bytes = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
+    live, fwd_bytes, marg_bwd_bytes = _marglik_sizes(marg_in)
     # Per live element: band contraction 11B, core_width and
     # phi_interval_scaled ~100, online update 5.
-    fwd = (live * (11 * B + 105), marg_in_bytes + f * C * S)
+    fwd = (live * (11 * B + 105), fwd_bytes)
     if not bwd:
         return {"marglik_fwd": fwd}
     skips = skip_shares(marg_in)
-    marg_bwd_bytes = (marg_in_bytes + f * 2 * C * S
-                      + f * (2 * C * T * B + C * T))
     return {
         "marglik_fwd": fwd,
         # Per (group, star) pair with a live segment: the group rule,
@@ -1863,11 +1898,16 @@ def run_config5(dev) -> dict:
 # in-process so that the wrappers' launch counters see it, at the widths of
 # conf/base9.yaml (100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, the
 # default upsample 4, 64 chains, dense metric, lMax 48).  Only the depth is
-# cut: 64 warmup transitions and 64 draws a chain.  conf/base9.yaml says
+# cut: 32 warmup transitions and 32 draws a chain, which leaves phase 13
+# its time within the script's limit.  conf/base9.yaml says
 # usePallas: false, which the card refuses; settings read a later `--set
 # mcmc.usePallas=auto` over that YAML boolean as false (as base_tpu's do),
 # so the kernels are asked for with true.
-CLI_SETS = ("mcmc.warmup=64", "mcmc.runIter=4096", "mcmc.usePallas=true")
+CLI_SETS = ("mcmc.warmup=32", "mcmc.runIter=2048", "mcmc.usePallas=true")
+# The CLI model's check (12a, 13b) runs on 16 of its 64 chains: the CPU
+# plain density at upsample 4 holds [C, S, T, B] tensors of 0.9 GB at 16
+# chains and B = 29.
+N_CHAINS_CLI_CHECK = 16
 # make-cmd on the card against the CPU: one unit of the .4f format plus the
 # float32 floor of the magnitudes.
 CMD_TOL = 2e-4
@@ -1949,28 +1989,38 @@ def run_resume(s, phot: str, ckpt: str, dev) -> dict:
     return res
 
 
-def check_cli_model(s, table, dev) -> dict:
-    """Phase 12a's model check: the model the CLI builds from its .phot
-    (n_q 16, upsample 4, its WDs with carbonicity and the IFMR free), at
-    the CLI's chains around its start: each kernel against its plain
-    version (kernels 3-4 on the MS and the WD segment tables), and
-    log_post + gradient on the card against the CPU plain path, twice bit
-    for bit.  Returns {kernel: max abs error}; raises past the
-    tolerances."""
+def cli_model(s, table, dev, n_chains: int):
+    """The model the CLI builds from its .phot, and n_chains points around
+    the config's start (the chains the CLI starts from)."""
     from base_tpu_torch.model import posterior as post
     from base_tpu_torch.tools import main as cli
 
     model = cli._build_model_from_phot(s, table, dev)
     z = chain_points(model, 0.05, seed=1, truth=s.cluster.start_vector(),
-                     n_chains=s.mcmc.chains, free=post.free_mask(model))
+                     n_chains=n_chains, free=post.free_mask(model))
+    return model, z
+
+
+def check_cli_model(s, table, dev, label: str = "12a",
+                    n_chains: int | None = None) -> dict:
+    """Phase 12a's model check: the model the CLI builds from its .phot
+    (n_q 16, upsample 4, its WDs with carbonicity and the IFMR free), at
+    the CLI's chains (or `n_chains`) around its start: each kernel against
+    its plain version (kernels 3-4 on the MS and the WD segment tables),
+    and log_post + gradient on the card against the CPU plain path, twice
+    bit for bit.  Returns {kernel: max abs error}; raises past the
+    tolerances."""
+    from base_tpu_torch.tools import main as cli
+
+    model, z = cli_model(s, table, dev, n_chains or s.mcmc.chains)
     n_wd = 0 if model.wd_stars is None else model.wd_stars.obs_mags.shape[0]
-    log(f"phase 12a: the CLI's model ({model.stars.obs_mags.shape[0]} MS "
-        f"stars, {n_wd} WDs, n_q {model.q_grid.shape[-1]}, upsample "
-        f"{model.upsample}, {z.shape[0]} chains): kernels vs plain, density "
-        f"card vs CPU")
-    errs = check_kernels(model, z, "cli")
+    log(f"phase {label}: the CLI's model ({model.stars.obs_mags.shape[0]} "
+        f"MS stars, {n_wd} WDs, {model.stars.obs_mags.shape[1]} bands, n_q "
+        f"{model.q_grid.shape[-1]}, upsample {model.upsample}, "
+        f"{z.shape[0]} chains): kernels vs plain, density card vs CPU")
+    errs = check_kernels(model, z, f"cli {label}")
     if model.wd_stars is not None:
-        wd = check_marglik(wd_marglik_inputs(model, z), "cli WD")
+        wd = check_marglik(wd_marglik_inputs(model, z), f"cli {label} WD")
         errs = {k: max(v, wd.get(k, 0.0)) for k, v in errs.items()}
     check_density(model, cli._build_model_from_phot(s, table, "cpu"), z)
     return errs
@@ -1980,7 +2030,7 @@ def run_cli(dev, hmc_res: dict) -> dict:
     """Phase 12: (a) simulate -> scatter; the CLI's model from that .phot
     checked (check_cli_model); single-pop --metrics, each
     kernel's launches over single-pop equal to the density calls the CLI
-    counted (kernels 3-4 once per segment table: twice with WDs), 4096
+    counted (kernels 3-4 once per segment table: twice with WDs), 2048
     finite .res rows, the age within 4 sd of the simulated truth, split
     R-hat of the age beside phase 4's; (b) sample-mass; (c) make-cmd on
     the card and, as a subprocess through `python -m`, on the CPU, within
@@ -2016,7 +2066,7 @@ def run_cli(dev, hmc_res: dict) -> dict:
         table = read_phot(base + ".phot")
         n_wd = int((table.stage == 3).sum())
         errs = check_cli_model(load_settings(conf, list(CLI_SETS)), table,
-                               dev)
+                               dev, "12a", N_CHAINS_CLI_CHECK)
         reset_launch_counts()
         metrics_path = os.path.join(tmp, "m.jsonl")
         tool("single-pop", "--photFile", base + ".phot",
@@ -2050,9 +2100,10 @@ def run_cli(dev, hmc_res: dict) -> dict:
             raise AssertionError(f"12a: launches {counts} for {calls} "
                                  f"density calls and {tables} tables "
                                  f"(want {want})")
-        if res["rows"] != 4096 or not (np.isfinite(chain.params).all()
+        rows = load_settings(conf, list(CLI_SETS)).mcmc.runIter
+        if res["rows"] != rows or not (np.isfinite(chain.params).all()
                                        and np.isfinite(chain.logpost).all()):
-            raise AssertionError("12a: the .res is not 4096 finite rows")
+            raise AssertionError(f"12a: the .res is not {rows} finite rows")
         if not abs(res["age"]["mean"] - res["age"]["truth"]) < \
                 4.0 * res["age"]["sd"]:
             raise AssertionError("12a: the CLI's age misses the truth")
@@ -2098,6 +2149,355 @@ def run_cli(dev, hmc_res: dict) -> dict:
         res["resume"] = run_resume(load_settings(conf, list(CLI_SETS)),
                                    base + ".phot",
                                    os.path.join(tmp, "resume.ckpt"), dev)
+    res["tool_wall_s"] = walls
+    return res
+
+
+# Phase 13: wide band sets through the grid ingest.  13a writes
+# upstream-format text grids with the port's writers (conf/base9.yaml's MS
+# family, its synthetic axis spans, in all 29 bands of grids/filters.py;
+# carbonicity-resolved WD cooling tracks; Bergeron DA/DB tables in the same
+# bands), packs them with `python -m base_tpu_torch.tools.main
+# convert-models`, and reads a table back through the native IO runtime.
+# 13b runs the CLI at conf/base9.yaml's widths on those grids with B = 29,
+# cut in depth only: 32 warmup transitions and 32 draws a chain (phase
+# 12's 64 + 64 took 125-276 s at B = 8 by host, and is 32 + 32 now), its
+# model check on N_CHAINS_CLI_CHECK chains.  13c drives the matmul form
+# (kernels 3m and 4m) at the bench shapes (B = 8) and on 13b's MS table (B
+# = 29).
+WIDE_SETS = ("mcmc.warmup=32", "mcmc.runIter=2048", "mcmc.usePallas=true")
+# 13c: chains of the float64 residual reference (the [rows, S, T, B]
+# tensors at B = 29 and T = 5056 hold 0.45 GB a row in float64), and the
+# value + gradient calls of fused_log_marginals(..., matmul=True) that
+# make up the matmul form's own path at each width.
+MM_CHECK_ROWS = 4
+MM_PATH_CALLS = 10
+# The matmul form against its plain version and the float64 residual form:
+# the expansion cancels in float32 (sum_b iv (obs - c)(lo - c) ~ 1e5 at
+# sigma 0.01 against chi2 ~ 1), and two float32 evaluations round apart by
+# as much as either is from float64.  So each kernel is held to MM_REL
+# times the plain version's own distance from float64, plus MM_ABS
+# (forward, abs) or MARGLIK_TOL (backward, scaled).
+MM_REL, MM_ABS = 2.0, 1e-4
+
+
+def write_text_grids(src: str, s) -> tuple:
+    """13a: the port's writers put the grids of `s`'s families in upstream
+    text format under `src`: the synthetic MS family (its axis spans) in
+    every band of grids/filters.py, WD cooling tracks, Bergeron DA/DB.
+    Returns (bands, the MS grid written)."""
+    import os
+
+    from base_tpu_torch.grids import filters, load, parse, synthetic
+    from base_tpu_torch.grids import wd_atmosphere as wda
+    from base_tpu_torch.grids import wd_cooling as wdc
+
+    bands = tuple(filters.FILTERS)
+    family = s.models.msRgbModel.lower()
+    spans = load.SYNTHETIC_SPANS[family]
+    ms = synthetic.make_grid(feh_axis=np.linspace(*spans["feh"]),
+                             y_axis=np.linspace(*spans["y"]),
+                             age_axis=np.linspace(*spans["age"]),
+                             bands=bands, name=family, device="cpu")
+    parse.write_ms_model(os.path.join(src, f"{family}.ms"), ms)
+    parse.write_wd_cooling(os.path.join(src, f"{s.models.wdModel}.wd"),
+                           wdc.synthetic_wd_cooling(device="cpu"))
+    atm = wda.synthetic_bergeron(bands=bands, device="cpu")
+    for wd_type, name in enumerate(("Table_DA", "Table_DB")):
+        parse.write_bergeron_table(os.path.join(src, name), atm, wd_type)
+    return bands, ms
+
+
+def check_native_io(table_path: str, out_path: str) -> dict:
+    """13a: the native runtime is loaded (no fallback), parses a written
+    Bergeron table as numpy does, and its AsyncWriter writes every row in
+    order."""
+    from base_tpu_torch.io import native
+
+    if not native.native_available():
+        raise AssertionError("13a: the native IO library did not build")
+    got, header = native.parse_table(table_path)
+    want = np.loadtxt(table_path, skiprows=1, ndmin=2)
+    with open(table_path) as f:
+        first = f.readline().strip()
+    if header != first or got.shape != want.shape or \
+            not np.array_equal(got, want):
+        raise AssertionError("13a: native parse_table disagrees with numpy")
+    rows = [" ".join(f"{v:.6f}" for v in r) + "\n" for r in want]
+    with native.AsyncWriter(out_path) as w:
+        for r in rows:
+            w.write(r)
+    with open(out_path) as f:
+        if f.read() != "".join(rows):
+            raise AssertionError("13a: AsyncWriter output differs")
+    res = dict(library=str(native.library_path().name),
+               table_shape=list(got.shape), rows_written=len(rows))
+    log("  native io " + json.dumps(res))
+    return res
+
+
+def marglik_mm_work(marg_in) -> dict:
+    """{kernel: (flops, bytes)} of kernels 3m and 4m (see kernel_work).
+    Per live element, 3m: the five expanded products 10B, gamma's assembly
+    4, core_width and the online update ~105; 4m: the products again,
+    core_width, the moments and weight ~38 and the five star-axis products
+    10B; per (segment, band) the assembly of dlo and dhi, 14.  No skip
+    rule: every live element costs the full path.  Bytes as kernels 3-4."""
+    B = marg_in[0].shape[1]
+    C, T = marg_in[3].shape[:2]
+    live, fwd_bytes, bwd_bytes = _marglik_sizes(marg_in)
+    return {
+        "marglik_mm_fwd": (live * (10 * B + 109), fwd_bytes),
+        "marglik_mm_bwd": (live * (20 * B + 147) + 14 * C * T * B,
+                           bwd_bytes),
+    }
+
+
+def check_mm(marg_in, label: str) -> dict:
+    """Kernels 3m and 4m against their plain versions and the float64
+    residual form on the first MM_CHECK_ROWS chains of the centered
+    inputs, each backward given its own forward's output; returns the
+    errors and budgets, with {kernel: max abs error against plain}.
+    Raises past MM_REL x the plain version's distance from float64, plus
+    MM_ABS (forward) or MARGLIK_TOL (backward, scaled)."""
+    from base_tpu_torch.ops import marglik as ml
+
+    rows = tuple(t[:MM_CHECK_ROWS] for t in marg_in[3:])
+    obs, lo, hi = ml.center_bands(marg_in[0], marg_in[1], rows[0], rows[1])
+    args = (obs, marg_in[1], marg_in[2], lo, hi, *rows[2:])
+    args64 = tuple(t.double() for t in args)
+    plain = ml.marglik_mm_fwd_plain(*args)
+    ref = ml.marglik_fwd_plain(*args64)
+    got = ml.marglik_mm_fwd_cuda(*args)
+    sel = ref > -200
+    plain_err = float((plain.double() - ref).abs()[sel].max())
+    budget = MM_REL * plain_err + MM_ABS
+    fwd_err = float((got - plain).abs()[sel].max())
+    fwd64 = float((got.double() - ref).abs()[sel].max())
+    gen = torch.Generator(device=plain.device).manual_seed(7)
+    g = torch.randn(plain.shape, generator=gen, device=plain.device)
+    names = ("dlo", "dhi", "dlogw")
+    # Each backward on its own forward's output, as autograd pairs them:
+    # the softmax weights exp(core - out') follow chi2's rounding, which
+    # here reaches the errors above.
+    bwd = ml.marglik_mm_bwd_cuda(*args, got, g)
+    bwd_plain = ml.marglik_mm_bwd_plain(*args, plain, g)
+    bwd_ref = ml.marglik_bwd_plain(*args64, ref, g.double())
+    bwd_abs, bwd_scaled, report = grad_errs(names, bwd, bwd_plain)
+    bwd64 = grad_errs(names, bwd, bwd_ref)[1]
+    plain64 = grad_errs(names, bwd_plain, bwd_ref)[1]
+    bwd_budget = MM_REL * plain64 + MARGLIK_TOL
+    res = dict(fwd_err=fwd_err, fwd_err_vs_float64=fwd64,
+               plain_err_vs_float64=plain_err, fwd_budget=budget,
+               bwd_abs=bwd_abs, bwd_scaled=bwd_scaled,
+               bwd_scaled_vs_float64=bwd64,
+               plain_bwd_scaled_vs_float64=plain64, bwd_budget=bwd_budget)
+    log(f"  [{label}] mm C={MM_CHECK_ROWS} B={obs.shape[1]}: "
+        f"{json.dumps(res)}; bwd abs/scaled {report}")
+    if not (fwd_err <= budget and fwd64 <= budget):
+        raise AssertionError(f"[{label}] marglik_mm_fwd past {budget:.3e}")
+    if not (bwd_scaled <= bwd_budget and bwd64 <= bwd_budget):
+        raise AssertionError(f"[{label}] marglik_mm_bwd past "
+                             f"{bwd_budget:.3e}")
+    return dict(res, max_abs_err={"marglik_mm_fwd": fwd_err,
+                                  "marglik_mm_bwd": bwd_abs})
+
+
+def mm_path(inputs: dict) -> dict:
+    """The matmul form's own path: MM_PATH_CALLS value + gradient calls of
+    fused_log_marginals(..., matmul=True) on each width's inputs, counts
+    reset just before and read just after; each of kernels 3m and 4m
+    launched once a call, and no other kernel."""
+    from base_tpu_torch.ops import marglik as ml
+
+    reset_launch_counts()
+    calls = 0
+    for marg_in in inputs.values():
+        leaves = [t.clone().requires_grad_(True) for t in marg_in[3:6]]
+        for _ in range(MM_PATH_CALLS):
+            out = ml.fused_log_marginals(*marg_in[:3], *leaves, marg_in[6],
+                                         matmul=True)
+            grads = torch.autograd.grad(out.sum(), leaves)
+            calls += 1
+        if not all(bool(torch.isfinite(x).all()) for x in (out, *grads)):
+            raise AssertionError("13c: the matmul form is not finite")
+    torch.cuda.synchronize()
+    counts = launch_counts((*KERNELS, *MM_KERNELS))
+    want = {k: (calls if k in MM_KERNELS else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"13c: launches {counts} for {calls} calls")
+    return counts
+
+
+def time_mm(marg_in) -> dict:
+    """Kernels 3, 3m, 4 and 4m on the same inputs (3m and 4m on them
+    centered): time_pair against the plain version of each, and bounds."""
+    from base_tpu_torch.ops import marglik as ml
+
+    obs, lo, hi = ml.center_bands(marg_in[0], marg_in[1], marg_in[3],
+                                  marg_in[4])
+    cent = (obs, marg_in[1], marg_in[2], lo, hi, *marg_in[5:])
+    out = ml.marglik_fwd_plain(*marg_in)
+    out_mm = ml.marglik_mm_fwd_plain(*cent)
+    gs = torch.ones_like(out)
+    times = dict(time_marglik(marg_in))
+    times["marglik_mm_fwd"] = time_pair(
+        lambda: ml.marglik_mm_fwd_cuda(*cent),
+        lambda: ml.marglik_mm_fwd_plain(*cent))
+    times["marglik_mm_bwd"] = time_pair(
+        lambda: ml.marglik_mm_bwd_cuda(*cent, out_mm, gs),
+        lambda: ml.marglik_mm_bwd_plain(*cent, out_mm, gs))
+    work = {**marglik_work(marg_in, bwd=True), **marglik_mm_work(marg_in)}
+    res = {}
+    for name, (ms, plain_ms, dev) in times.items():
+        bound_ms, by = bound(*work[name])
+        res[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev,
+                         bound_ms=bound_ms, bound_by=by,
+                         roofline_share=bound_ms / dev)
+    return res
+
+
+def run_wide(dev, bench) -> dict:
+    """Phase 13: (a) text grids in 29 bands -> convert-models -> native IO;
+    (b) the CLI on the converted grids at B = 29: the model checked
+    (check_cli_model on 16 chains), single-pop --metrics with every
+    kernel's launches held to the density calls counted, the age within 4
+    sd of the truth; kernels 1-4 timed beside their bounds on its 64
+    chains; (c) the matmul form against its plain version and float64 at
+    `bench` = (model, z) (B = 8) and on 13b's MS table (B = 29), its own
+    path's launches, and each form's device ms beside its bound."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from base_tpu_torch.grids import load
+    from base_tpu_torch.io.phot import read_phot
+    from base_tpu_torch.io.res import read_res
+    from base_tpu_torch.io.settings import load_settings
+    from base_tpu_torch.tools import main as cli
+
+    root = Path(__file__).resolve().parent
+    conf = str(root / "conf" / "base9.yaml")
+    res, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "text"), os.path.join(tmp, "npz")
+        os.makedirs(src)
+        log("phase 13a: text grids in 29 bands -> convert-models -> "
+            "native IO")
+        t0 = time.perf_counter()
+        bands, ms = write_text_grids(src, load_settings(conf))
+        walls["write text grids"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "base_tpu_torch.tools.main",
+             "convert-models", "--config", conf, "--src", src, "--dst", dst],
+            cwd=root, check=True, timeout=600, capture_output=True,
+            text=True)
+        walls["convert-models (subprocess)"] = time.perf_counter() - t0
+        written = sorted(os.listdir(dst))
+        log("  " + proc.stdout.strip().replace("\n", "\n  "))
+        if written != ["bergeron.npz", f"{ms.name}.npz", "wd_montgomery.npz"]:
+            raise AssertionError(f"13a: convert-models wrote {written}")
+        sets = (*WIDE_SETS, f"files.modelDirectory={dst}",
+                "models.bands=" + ",".join(bands))
+        s = load_settings(conf, list(sets))
+        bundle = load.make_model(s, device="cpu")
+        if not (bundle.ms.bands == bands == bundle.wd_atm.bands
+                and bundle.ms.name == ms.name):
+            raise AssertionError("13a: the packed grids' bands or names")
+        back = float((bundle.ms.mags - ms.mags).abs().max())
+        if not back <= 5e-6:   # the text's 6 decimals
+            raise AssertionError(f"13a: packed MS mags {back:.2e} off")
+        res["ingest"] = dict(written=written, bands=len(bands),
+                             ms_mags_max_abs_err=back, **check_native_io(
+                                 os.path.join(src, "Table_DA"),
+                                 os.path.join(tmp, "async.txt")))
+
+        base = os.path.join(tmp, "run")
+        args = ["--config", conf, "--outputFileBase", base,
+                *[a for x in sets for a in ("--set", x)], "--device",
+                str(dev)]
+
+        def tool(name, *extra):
+            t0 = time.perf_counter()
+            cli.main([name, *args, *extra])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+
+        log("phase 13b: simulate -> scatter -> single-pop --metrics at 29 "
+            "bands on the converted grids")
+        tool("simulate")
+        tool("scatter", "--photFile", base + ".sim.phot")
+        table = read_phot(base + ".phot")
+        n_wd = int((table.stage == 3).sum())
+        res["max_abs_err"] = check_cli_model(s, table, dev, "13b",
+                                             N_CHAINS_CLI_CHECK)
+        model, z = cli_model(s, table, dev, s.mcmc.chains)
+        if model.stars.obs_mags.shape[1] != len(bands):
+            raise AssertionError("13b: the CLI's model lost bands")
+        reset_launch_counts()
+        metrics_path = os.path.join(tmp, "m.jsonl")
+        tool("single-pop", "--photFile", base + ".phot",
+             "--metrics", metrics_path)
+        counts = launch_counts((*KERNELS, *MM_KERNELS))
+        with open(metrics_path) as f:
+            metrics = [json.loads(line) for line in f][-1]
+        calls = metrics["density_calls"]
+        tables = 2 if n_wd else 1
+        want = {k: (0 if k in MM_KERNELS else calls
+                    * (tables if k.startswith("marglik") else 1))
+                for k in counts}
+        chain = read_res(base + ".res")
+        age = chain.params[:, 0]
+        rows = s.mcmc.runIter
+        res.update(
+            stars=int(table.n_stars), wds=n_wd, bands=len(bands),
+            density_calls=calls, launches=counts,
+            rows=int(chain.params.shape[0]),
+            samples_per_s=metrics["samples_per_sec"],
+            evals_per_s=metrics["evals_per_sec"],
+            single_pop_wall_s=metrics["wall_s"],
+            calls_per_s=calls / metrics["wall_s"],
+            accept=metrics["accept"], ess_age=metrics["ess_age"],
+            rhat_age=metrics["rhat_age"],
+            age=dict(mean=float(age.mean()), sd=float(age.std()),
+                     truth=float(s.cluster.starting_logAge)))
+        log("  single-pop " + json.dumps(res))
+        if counts != want:
+            raise AssertionError(f"13b: launches {counts} for {calls} "
+                                 f"density calls and {tables} tables "
+                                 f"(want {want})")
+        if res["rows"] != rows or not (np.isfinite(chain.params).all()
+                                       and np.isfinite(chain.logpost).all()):
+            raise AssertionError(f"13b: the .res is not {rows} finite rows")
+        if not abs(res["age"]["mean"] - res["age"]["truth"]) < \
+                4.0 * res["age"]["sd"]:
+            raise AssertionError("13b: the CLI's age misses the truth")
+
+    log("phase 13b: kernels 1-4 at B = 29 (the CLI's 64 chains): times "
+        "and bounds")
+    times = time_kernels(model, z)
+    work = kernel_work(model, z)
+    res["kernels_b29"] = {}
+    for name in KERNELS:
+        ms_, plain_ms, dev_ms = times[name]
+        bound_ms, by = bound(*work[name])
+        res["kernels_b29"][name] = dict(
+            ms=ms_, plain_ms=plain_ms, device_ms=dev_ms, bound_ms=bound_ms,
+            bound_by=by, roofline_share=bound_ms / dev_ms)
+    log("  " + json.dumps(res["kernels_b29"]))
+
+    log("phase 13c: the matmul form (kernels 3m, 4m) at B = 8 and B = 29")
+    inputs = {"bench": kernel_inputs(*bench)[1],
+              "b29": kernel_inputs(model, z)[1]}
+    res["mm_check"] = {k: check_mm(v, k) for k, v in inputs.items()}
+    res["mm_launches"] = mm_path(inputs)
+    res["mm_times"] = {k: time_mm(v) for k, v in inputs.items()}
+    for label, t in res["mm_times"].items():
+        log(f"  [{label}] device ms: " + ", ".join(
+            f"{k} {v['device_ms']:.5f} (bound {v['bound_ms']:.5f} by "
+            f"{v['bound_by']}, share {v['roofline_share']:.3f})"
+            for k, v in t.items()))
     res["tool_wall_s"] = walls
     return res
 
@@ -2246,6 +2646,10 @@ def main() -> None:
     # 12. The CLI end to end at conf/base9.yaml's widths.
     cli = run_cli(torch.device("cuda", 0), hmc_res)
 
+    # 13. Wide band sets: the grid ingest, the CLI at 29 bands, the matmul
+    # form of kernels 3 and 4.
+    wide = run_wide(torch.device("cuda", 0), (model, z))
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report[name]
@@ -2268,12 +2672,31 @@ def main() -> None:
             launches_config2=c2["hmc"]["launches"][name],
             **c5["kernels"][name],
             launches_cli=cli["launches"][name],
-            max_abs_err_cli=cli["max_abs_err"][name]))
+            max_abs_err_cli=cli["max_abs_err"][name],
+            launches_wide=wide["launches"][name],
+            max_abs_err_wide=wide["max_abs_err"][name],
+            b29=wide["kernels_b29"][name]))
+        if not all(math.isfinite(v) for k, v in kernels[-1].items()
+                   if k.startswith(("ms", "plain_ms", "bound_ms",
+                                    "device_ms"))):
+            raise AssertionError(f"{name}: a time is missing or not finite")
+    for name, (source, replaces) in MM_KERNELS.items():
+        t8 = wide["mm_times"]["bench"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=wide["mm_launches"][name],
+            max_abs_err=max(c["max_abs_err"][name]
+                            for c in wide["mm_check"].values()),
+            ms=t8["ms"], plain_ms=t8["plain_ms"], bound_ms=t8["bound_ms"],
+            bound_by=t8["bound_by"], library_ms=None,
+            roofline_share=t8["roofline_share"], device_ms=t8["device_ms"],
+            b29=wide["mm_times"]["b29"][name]))
         if not all(math.isfinite(v) for k, v in kernels[-1].items()
                    if k.startswith(("ms", "plain_ms", "bound_ms",
                                     "device_ms"))):
             raise AssertionError(f"{name}: a time is missing or not finite")
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"wide": wide}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

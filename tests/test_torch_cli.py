@@ -284,7 +284,7 @@ def test_device_rules(workdir):
     """usePallas false on a CUDA device raises (no card needed: the rule
     is resolve_use_pallas); auto means the kernels iff CUDA; typos raise;
     with no CUDA device the CLI's default device exits non-zero, and
-    --mesh and convert-models exit non-zero."""
+    --mesh and convert-models without --src/--dst exit non-zero."""
     rp = tsettings.resolve_use_pallas
     for v in (False, "false", "off", "0"):
         with pytest.raises(ValueError, match="mcmc.usePallas"):

@@ -559,3 +559,126 @@ def test_cli_single_pop_launches_equal_density_calls(cuda, tmp_path):
     assert calls > 0
     assert tuple(a - b for a, b in zip(after, before)) == (
         calls, calls, tables * calls, tables * calls)
+
+
+@pytest.mark.parametrize("B,E2", [(17, 24), (29, 80), (32, 300)])
+def test_kernels_past_16_bands_match_plain(cuda, B, E2):
+    """Kernels 1-4 in their wide band class (17..32 bands) against their
+    plain versions, as at 1-16 bands: kernel 1 to 1e-4, kernel 2 to 1e-3
+    scaled, kernels 3-4 to MARGLIK_TOL against plain and float64.  E2 =
+    300 at 32 bands takes kernel 2's node pass past 48 KB of shared
+    memory, and B = 29 and 32 take kernel 4's partials past it."""
+    targs = _table_inputs(cuda, B=B, E2=E2)
+    torch.testing.assert_close(tb.table_fwd_cuda(*targs),
+                               tb.table_fwd_plain(*targs), rtol=0, atol=1e-4)
+    g = _randn(targs[0].shape, cuda)
+    for got, want in zip(tb.table_bwd_cuda(*targs, g),
+                         tb.table_bwd_plain(*targs, g)):
+        scale = want.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(got / scale, want / scale, rtol=0,
+                                   atol=1e-3)
+    args = _marglik_inputs(cuda, S=150, T=700, B=B, seed=B, near=True)
+    _check_own_outputs(args, _randn((3, 150), cuda),
+                       (ml.marglik_fwd_cuda, ml.marglik_bwd_cuda),
+                       (ml.marglik_fwd_plain, ml.marglik_bwd_plain), 0.0,
+                       MARGLIK_TOL)
+
+
+def _check_own_outputs(args, g, kernels, plains, rel, floor):
+    """A forward kernel and its backward against their plain versions and
+    the float64 residual form, each backward given its own forward's
+    output, as autograd pairs them.  The softmax weights exp(core - out')
+    are exponentially sensitive to chi2's rounding, and at 29 bands chi2's
+    terms reach ~1e4, so a backward handed another forward's out' moves by
+    the difference of two roundings, not by its own error.  Forward: abs
+    error; backward: scaled by the float64 output's max; each held to
+    `rel` times the plain version's own distance from float64 plus
+    `floor` (the forward's floor at least 1e-4)."""
+    args64 = tuple(t.double() for t in args)
+    ref = ml.marglik_fwd_plain(*args64)
+    plain = plains[0](*args)
+    got = kernels[0](*args)
+    sel = ref > -200
+    budget = rel * float((plain.double() - ref).abs()[sel].max()) \
+        + max(floor, 1e-4)
+    assert float((got - plain).abs()[sel].max()) <= budget
+    assert float((got.double() - ref).abs()[sel].max()) <= budget
+    for a, p, w in zip(kernels[1](*args, got, g), plains[1](*args, plain, g),
+                       ml.marglik_bwd_plain(*args64, ref, g.double())):
+        scale = float(w.abs().max()) + 1e-30
+        budget = rel * float((p.double() - w).abs().max()) / scale + floor
+        assert float((a - p).abs().max()) / scale <= budget
+        assert float((a.double() - w).abs().max()) / scale <= budget
+
+
+def _mm_inputs(dev, B, S=150, T=700):
+    """Kernel 3m/4m inputs: _marglik_inputs centered per band, as
+    fused_log_marginals(..., matmul=True) passes them."""
+    args = _marglik_inputs(dev, S=S, T=T, B=B, seed=B + 1, near=True)
+    obs, lo, hi = ml.center_bands(args[0], args[1], args[3], args[4])
+    return (obs, args[1], args[2], lo, hi, args[5], args[6])
+
+
+@pytest.mark.parametrize("B", [8, 29])
+def test_mm_kernels_match_plain(cuda, B):
+    """Kernels 3m and 4m against their plain versions and the float64
+    residual form (_check_own_outputs).  The expansion cancels in float32,
+    and two float32 evaluations round apart by as much as either is from
+    float64, so each kernel is held to twice the plain version's own
+    distance from float64, plus 1e-4 (forward) or MARGLIK_TOL (backward,
+    scaled), as chip_smoke.py phase 13c holds them."""
+    _check_own_outputs(_mm_inputs(cuda, B), _randn((3, 150), cuda),
+                       (ml.marglik_mm_fwd_cuda, ml.marglik_mm_bwd_cuda),
+                       (ml.marglik_mm_fwd_plain, ml.marglik_mm_bwd_plain),
+                       2.0, MARGLIK_TOL)
+
+
+def test_mm_kernels_deterministic_counted_and_autograd(cuda):
+    """Kernels 3m and 4m rerun bit for bit, count one launch a call each,
+    and carry fused_log_marginals(..., matmul=True) with its gradient:
+    equal to calling them on the centered inputs."""
+    args = _marglik_inputs(cuda, S=70, T=500, B=29, seed=3, near=True)
+    obs, lo, hi = ml.center_bands(args[0], args[1], args[3], args[4])
+    cargs = (obs, args[1], args[2], lo, hi, *args[5:])
+    before = ml.marglik_mm_fwd_launches, ml.marglik_mm_bwd_launches
+    out = ml.marglik_mm_fwd_cuda(*cargs)
+    assert torch.equal(out, ml.marglik_mm_fwd_cuda(*cargs))
+    g = _randn(out.shape, cuda)
+    first = ml.marglik_mm_bwd_cuda(*cargs, out, g)
+    second = ml.marglik_mm_bwd_cuda(*cargs, out, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert (ml.marglik_mm_fwd_launches, ml.marglik_mm_bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    leaves = [t.clone().requires_grad_(True) for t in args[3:6]]
+    fused = ml.fused_log_marginals(*args[:3], *leaves, args[6], matmul=True)
+    assert torch.equal(fused, out)
+    grads = torch.autograd.grad(fused, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, first))
+    assert (ml.marglik_mm_fwd_launches, ml.marglik_mm_bwd_launches) == (
+        before[0] + 3, before[1] + 3)
+
+
+def test_wrappers_refuse_33_bands_on_the_card(cuda):
+    """33 bands: every wrapper raises, naming the limit, before any
+    launch."""
+    args = _marglik_inputs(cuda, S=5, T=40, B=33)
+    out = torch.zeros((3, 5), device=cuda)
+    before = _launches()
+    for fn in (ml.marglik_fwd_cuda, ml.marglik_mm_fwd_cuda):
+        with pytest.raises(ValueError, match="at most 32 bands, got 33"):
+            fn(*args)
+    for fn in (ml.marglik_bwd_cuda, ml.marglik_mm_bwd_cuda):
+        with pytest.raises(ValueError, match="at most 32 bands, got 33"):
+            fn(*args, out, out)
+    targs = _table_inputs(cuda, B=33)
+    with pytest.raises(ValueError, match="at most 32 bands, got 33"):
+        tb.table_fwd_cuda(*targs)
+    with pytest.raises(ValueError, match="at most 32 bands, got 33"):
+        tb.table_bwd_cuda(*targs, targs[0])
+    assert _launches() == before
+
+
+def _launches():
+    return (tb.table_fwd_launches, tb.table_bwd_launches,
+            ml.marglik_fwd_launches, ml.marglik_bwd_launches,
+            ml.marglik_mm_fwd_launches, ml.marglik_mm_bwd_launches)

@@ -44,7 +44,8 @@ def test_port_imports_no_base_tpu_or_jax():
                    "io/phot.py", "io/res.py", "io/samples.py",
                    "io/sqlite_store.py", "io/checkpoint.py",
                    "utils/metrics.py", "grids/load.py",
-                   "inference/driver.py", "tools/main.py"):
+                   "inference/driver.py", "tools/main.py", "grids/parse.py",
+                   "io/native.py"):
         assert ROOT / "base_tpu_torch" / module in files
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
@@ -92,3 +93,23 @@ def test_port_host_copies_equal_base_tpu():
         for axis in ("feh", "y", "age"):
             assert (np.linspace(*spans[axis]).astype(np.float32)
                     == np.asarray(getattr(grid, axis))).all(), (family, axis)
+
+
+def test_port_ingest_copies_equal_base_tpu():
+    """The grid converter's recognised extensions, and the native IO
+    runtime's C++ source line for line once comments are set aside."""
+    import re
+
+    from base_tpu.grids import parse as jparse
+    from base_tpu_torch.grids import parse as tparse
+
+    assert tparse.MS_EXTS == jparse.MS_EXTS
+    assert tparse.WD_EXTS == jparse.WD_EXTS
+
+    def code(path):
+        lines = (re.sub(r"//.*", "", ln).rstrip()
+                 for ln in path.read_text().splitlines())
+        return [ln for ln in lines if ln]
+
+    assert code(ROOT / "base_tpu_torch/io/basetpu_io.cpp") == code(
+        ROOT / "native/basetpu_io.cpp")

@@ -480,6 +480,22 @@ def test_marglik_skip_adversarial_inputs(case):
     assert marked <= groups
 
 
+@pytest.mark.parametrize("case", ["plain", "flat", "far_mu", "huge_gamma",
+                                  "unobserved"])
+def test_marglik_skip_rules_at_29_bands(case):
+    """The adversarial inputs at B = 29, every filter of grids/filters.py
+    (the kernels take up to 32 bands): neither rule marks an element or a
+    group holding a non-zero weight, and both still mark."""
+    args = _adversarial_args(case, B=29)
+    out = tml.marglik_fwd_plain(*args)
+    misses, marked, live = _skip_misses(args, out)
+    assert misses == 0
+    assert 0 < marked <= live
+    misses, marked, groups = _group_misses(args, out)
+    assert misses == 0
+    assert marked <= groups
+
+
 def test_marglik_skip_outputs_near_threshold():
     """With out' set so that the elements' log weights lie around the
     rules' threshold, and out' = NEG_INF for one star, neither rule marks
