@@ -15,4 +15,14 @@ __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
 }
 
+// A launch that needs more than 48 KB of shared memory has to ask first
+// (Hopper allows up to 227 KB a block).
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
 }  // namespace btt

@@ -405,7 +405,7 @@ template <int B>
 int launch_bwd(const BwdArgs& a, int C, cudaStream_t st) {
   const dim3 grid((a.T + 31) / 32, C);
   const size_t smem = bwd_smem_floats(B) * sizeof(float);
-  const int err = allow_smem(marglik_bwd_kernel<B>, smem);
+  const int err = btt::allow_smem(marglik_bwd_kernel<B>, smem);
   if (err != 0) return err;
   marglik_bwd_kernel<B><<<grid, BWD_WARPS * 32, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());  // launch status

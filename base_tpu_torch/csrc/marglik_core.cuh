@@ -129,13 +129,4 @@ __device__ __forceinline__ void moments(const Segment& g, float* t1,
   }
 }
 
-// A launch that needs more than 48 KB of shared memory has to ask first.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
 }  // namespace

@@ -55,7 +55,8 @@ constexpr int MM_PITCH = 33;                 // padded row of 4m's weights
 constexpr int MM_PAIRS = btt::MAX_B * 32 / MM_THREADS;
 
 // Stage the star tile's iv and iv obs star-minor [B, MM_STARS] and c0 =
-// sum_b (iv obs) obs in band order (zeros past the last star).
+// sum_b (iv obs) obs, an FMA a band in band order (zeros past the last
+// star).
 __device__ void stage_stars(float* s_iv, float* s_ivo, float* s_c0,
                             const float* obs, const float* iv, int s0, int S,
                             int B) {
@@ -72,13 +73,15 @@ __device__ void stage_stars(float* s_iv, float* s_ivo, float* s_c0,
     float c0 = 0.0f;
     for (int b = 0; s < S && b < B; ++b) {
       const size_t k = static_cast<size_t>(s) * B + b;
-      c0 += iv[k] * obs[k] * obs[k];
+      c0 = fmaf(iv[k] * obs[k], obs[k], c0);
     }
     s_c0[i] = c0;
   }
 }
 
-// The five band contractions of one (star, segment) element, expanded.
+// The five band contractions of one (star, segment) element, expanded:
+// one explicit FMA a band, bands in order from 0, which ops/marglik.py
+// `_abg_mm` reproduces rounding for rounding.
 struct Abg {
   float a, b1, b2, g1, g2;  // iv d^2, ivo d, iv lo d, ivo lo, iv lo^2
 };
@@ -86,11 +89,11 @@ struct Abg {
 __device__ __forceinline__ void add_band(Abg& x, float w, float v, float l,
                                          float d, float dd, float ld,
                                          float ll) {
-  x.a += w * dd;
-  x.b1 += v * d;
-  x.b2 += w * ld;
-  x.g1 += v * l;
-  x.g2 += w * ll;
+  x.a = fmaf(w, dd, x.a);
+  x.b1 = fmaf(v, d, x.b1);
+  x.b2 = fmaf(w, ld, x.b2);
+  x.g1 = fmaf(v, l, x.g1);
+  x.g2 = fmaf(w, ll, x.g2);
 }
 
 __device__ __forceinline__ Segment expanded_core_width(const Abg& x, float c0,
@@ -350,7 +353,7 @@ extern "C" int btt_marglik_mm_fwd(const float* obs, const float* iv,
   cudaSetDevice(device);
   if (B < 1 || B > btt::MAX_B) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(B);
-  const int err = allow_smem(marglik_mm_fwd_kernel, smem);
+  const int err = btt::allow_smem(marglik_mm_fwd_kernel, smem);
   if (err != 0) return err;
   const dim3 grid((S + MM_STARS - 1) / MM_STARS, C);
   marglik_mm_fwd_kernel<<<grid, MM_THREADS, smem,
@@ -371,7 +374,7 @@ extern "C" int btt_marglik_mm_bwd(const float* obs, const float* iv,
   const MmBwdArgs a{obs, iv, log_norm, lo, hi, logw, mask, out, gout,
                     dlo, dhi, dlogw, S, T, B};
   const size_t smem = bwd_smem(B);
-  const int err = allow_smem(marglik_mm_bwd_kernel, smem);
+  const int err = btt::allow_smem(marglik_mm_bwd_kernel, smem);
   if (err != 0) return err;
   const dim3 grid((T + 31) / 32, C);
   marglik_mm_bwd_kernel<<<grid, MM_THREADS, smem,

@@ -211,15 +211,6 @@ __device__ __forceinline__ void window_mags(const float* sh, float q, int B,
   }
 }
 
-// A launch that needs more than 48 KB of shared memory has to ask first.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
 // --- Kernel 1 -------------------------------------------------------------
 
 // MB: the band class, NARROW_B or MAX_B (one instance each).
@@ -465,7 +456,7 @@ int launch_table_fwd(const float* app1, const float* m2, const float* lit,
                      const float* xr, const float* idr, float* out, int C,
                      int B, int N, int E2, cudaStream_t st) {
   const size_t smem = window_smem(B, E2);
-  const int err = allow_smem(table_fwd_kernel<MB>, smem);
+  const int err = btt::allow_smem(table_fwd_kernel<MB>, smem);
   if (err != 0) return err;
   dim3 grid((N + FWD_NODES - 1) / FWD_NODES, C);
   table_fwd_kernel<MB><<<grid, FWD_NODES, smem, st>>>(
@@ -481,7 +472,7 @@ int launch_table_bwd(const float* app1, const float* m2, const float* lit,
                      int C, int B, int N, int E2, cudaStream_t st) {
   const int tiles = (N + BWD_NODES - 1) / BWD_NODES;
   const size_t smem = bwd_node_smem(B, E2);
-  const int err = allow_smem(table_bwd_node_kernel<MB>, smem);
+  const int err = btt::allow_smem(table_bwd_node_kernel<MB>, smem);
   if (err != 0) return err;
   table_bwd_node_kernel<MB><<<dim3(tiles, C), BWD_NODES, smem, st>>>(
       app1, m2, lit, secT, xl, idl, xr, idr, g, dapp1, dm2, dlit, part, B, N,

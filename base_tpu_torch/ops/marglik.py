@@ -59,17 +59,50 @@ def _abg(obs, inv_var, lo, hi):
     return alpha, beta, gamma, d, r, iv
 
 
+def _fma(x, y, acc):
+    """acc + x * y rounded once, as an FFMA rounds it.  In float32 the
+    product is exact in float64, the sum there is made round-to-odd from
+    its exact error (TwoSum), and rounding that to float32 gives the
+    correctly rounded result; other dtypes round twice."""
+    if acc.dtype != torch.float32:
+        return acc + x * y
+    a, p = acc.double(), x.double() * y.double()
+    s = a + p
+    t = s - a
+    err = (a - (s - t)) + (p - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _fma_dot(u, v):
+    """[S, B] x [C, B, T] -> [C, S, T]: sum over bands of u v, accumulated
+    band by band in order from 0 by _fma, as kernels 3m and 4m do."""
+    acc = u.new_zeros((v.shape[0], u.shape[0], v.shape[2]))
+    for b in range(u.shape[1]):
+        acc = _fma(u[None, :, b, None], v[:, None, b, :], acc)
+    return acc
+
+
 def _abg_mm(obs, inv_var, lo, hi):
     """Kernel 3m's band contractions alpha, beta, gamma [C, S, T]: base_tpu's
     `_abg_matmul`, the quadratic expanded into five [S, B] @ [C, B, T]
-    products (float32 throughout) and gamma clamped at 0."""
+    products (float32 throughout) and gamma clamped at 0.  The products
+    (and c0) are summed in the kernels' own order, so the expansion's
+    float32 rounding, which at wide B reaches whole nats (~ulp of
+    sum_b iv obs^2), is the same in both and the kernels are held to this
+    version as tightly as kernel 3 to its own."""
     ivo = inv_var * obs                                  # [S, B]
-    c0 = (ivo * obs).sum(1)[:, None]                     # [S, 1]
+    c0 = obs.new_zeros(obs.shape[0])
+    for b in range(obs.shape[1]):
+        c0 = _fma(ivo[:, b], obs[:, b], c0)
     dT = (hi - lo).transpose(1, 2)                       # [C, B, T]
     loT = lo.transpose(1, 2)
-    alpha = inv_var @ (dT * dT)
-    beta = ivo @ dT - inv_var @ (loT * dT)
-    gamma = c0 - 2.0 * (ivo @ loT) + inv_var @ (loT * loT)
+    alpha = _fma_dot(inv_var, dT * dT)
+    beta = _fma_dot(ivo, dT) - _fma_dot(inv_var, loT * dT)
+    gamma = c0[:, None] - 2.0 * _fma_dot(ivo, loT) \
+        + _fma_dot(inv_var, loT * loT)
     return alpha, beta, gamma.clamp_min(0.0)
 
 

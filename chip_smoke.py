@@ -89,15 +89,15 @@ in-process (so the wrappers' launch counters see it) at the widths of
 conf/base9.yaml: 100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, upsample
 4, 64 chains, dense metric, lMax 48, cut only in depth (32 + 32 draws a
 chain).  12a: simulate -> scatter; the model the CLI builds from that
-.phot (n_q 16, upsample 4, 4 WDs) at 16 of its 64 chains, each kernel
-against its plain version (kernels 3-4 on the MS and the WD tables) and
-log_post + gradient against the CPU plain path; single-pop --metrics,
-every kernel's launches held to the density calls the CLI counted
-(kernels 3-4 once per segment table: twice with the simulated WDs), 2048
-finite .res rows, the
-age within 4 sd of the truth; 12b: sample-mass; 12c: make-cmd on the card
-and through `python -m base_tpu_torch.tools.main make-cmd --device cpu` in
-a subprocess, within CMD_TOL; 12d: run_hmc_checkpointed on the CLI's model
+.phot (n_q 16, upsample 4, 4 WDs) at its 64 chains, each kernel against
+its plain version (kernels 3-4 on the MS and the WD tables), and log_post
++ gradient on 16 of those chains against the CPU plain path; single-pop
+--metrics, every kernel's launches held to the density calls the CLI
+counted (kernels 3-4 once per segment table: twice with the simulated
+WDs), 2048 finite .res rows, the age within 4 sd of the truth; 12b:
+sample-mass; 12c: make-cmd on the card and through `python -m
+base_tpu_torch.tools.main make-cmd --device cpu` in a subprocess, within
+CMD_TOL; 12d: run_hmc_checkpointed on the CLI's model
 interrupted after chunk 1 and resumed, bit for bit against an
 uninterrupted run, the CUDA generator's state included.
 
@@ -110,13 +110,15 @@ convert-models --src --dst` packs them (subprocess); a table is read back
 through io.native (the library must load: no numpy fallback) and rows go
 out through its AsyncWriter.  13b: simulate -> scatter -> single-pop
 --metrics at conf/base9.yaml's widths on those grids with B = 29, cut to
-32 + 32 draws a chain; the CLI's model checked as in 12a on 16 chains
-(kernels 1-4 against plain at B = 29, density against the CPU); every
-kernel's launches held to the density calls (kernels 3m/4m never), the age
-within 4 sd of the truth; kernels 1-4 timed at B = 29 beside their bounds.
+32 + 32 draws a chain; the CLI's model checked as in 12a (kernels 1-4
+against plain at B = 29 on its 64 chains, density against the CPU on 16);
+every kernel's launches held to the density calls (kernels 3m/4m never),
+the age within 4 sd of the truth; kernels 1-4 timed at B = 29 beside their bounds.
 13c: the matmul form (kernels 3m and 4m, `fused_log_marginals(...,
-matmul=True)`) against its plain version and the float64 residual form at
-the bench shapes (B = 8) and on 13b's MS table (B = 29), its own path
+matmul=True)`) against its plain version (MARGLIK_TOL) and the float64
+residual form at the bench shapes (B = 8) and on 13b's MS table (B = 29),
+64 chains at each of MM_SEEDS, with kernels 3 and 4 (the residual form) in
+their place as a control that must fail the same gate; its own path
 (value + gradient calls, launches counted over it alone), and the device
 ms of both forms at both widths beside their bounds.
 
@@ -335,6 +337,24 @@ def grad_errs(names, got, want) -> tuple[float, float, str]:
     return abs_e, scaled, " ".join(report)
 
 
+def plain_blocks(fn, marg_in, *per_chain):
+    """A plain marginal version `fn` on blocks of chains of `marg_in`
+    (with `per_chain` tensors, such as out and g, cut alike), its outputs
+    joined along the chain axis: the float64 residual form holds [C, S, T,
+    B] tensors, 0.11 GB a chain at B = 29 and T = 5056."""
+    S, B = marg_in[0].shape
+    T = marg_in[3].shape[1]
+    step = max(1, int(PLAIN_BLOCK_BYTES // (S * T * B * 8)))
+    outs = []
+    for c0 in range(0, marg_in[3].shape[0], step):
+        rows = slice(c0, c0 + step)
+        outs.append(fn(*marg_in[:3], *(t[rows] for t in marg_in[3:]),
+                       *(t[rows] for t in per_chain)))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def check_marglik(marg_in, label: str) -> dict:
     """Kernels 3 and 4 against their plain versions (and the plain version
     in float64) on the same CUDA inputs; returns ({kernel: max abs error},
@@ -344,9 +364,9 @@ def check_marglik(marg_in, label: str) -> dict:
     gen = torch.Generator(device=marg_in[0].device).manual_seed(7)
     abs_errs, checked = {}, {}
     out_k = ml.marglik_fwd_cuda(*marg_in)
-    out_p = ml.marglik_fwd_plain(*marg_in)
+    out_p = plain_blocks(ml.marglik_fwd_plain, marg_in)
     marg64 = tuple(t.double() for t in marg_in)
-    out_64 = ml.marglik_fwd_plain(*marg64)
+    out_64 = plain_blocks(ml.marglik_fwd_plain, marg64)
     sel = out_p > -200
     abs_errs["marglik_fwd"] = checked["marglik_fwd"] = float(
         (out_k - out_p).abs()[sel].max())
@@ -354,8 +374,8 @@ def check_marglik(marg_in, label: str) -> dict:
                            float((out_p - out_64).abs()[sel].max()))}
     gs = torch.randn(out_p.shape, generator=gen, device=out_p.device)
     bwd_k = ml.marglik_bwd_cuda(*marg_in, out_p, gs)
-    bwd_p = ml.marglik_bwd_plain(*marg_in, out_p, gs)
-    bwd_64 = ml.marglik_bwd_plain(*marg64, out_64, gs.double())
+    bwd_p = plain_blocks(ml.marglik_bwd_plain, marg_in, out_p, gs)
+    bwd_64 = plain_blocks(ml.marglik_bwd_plain, marg64, out_64, gs.double())
     names = ("dlo", "dhi", "dlogw")
     abs_errs["marglik_bwd"], checked["marglik_bwd"], report = grad_errs(
         names, bwd_k, bwd_p)
@@ -631,14 +651,17 @@ def device_ms(fn, reps: int = 20) -> float:
     return ev[1].elapsed_time(ev[2]) / reps
 
 
-def time_pair(kernel, plain, reps: int = 20) -> tuple[float, float, float]:
+def time_pair(kernel, plain, reps: int = 20,
+              plain_reps: int | None = None) -> tuple[float, float, float]:
     """(kernel ms, plain ms, kernel device ms): CUDA events over `reps`
-    calls, in the order plain, kernel, kernel, plain; then the kernel's
-    device time (device_ms)."""
-    p1 = cuda_ms(plain, reps)
+    calls (`plain_reps` of the plain version, by default as many), in the
+    order plain, kernel, kernel, plain; then the kernel's device time
+    (device_ms)."""
+    plain_reps = plain_reps or reps
+    p1 = cuda_ms(plain, plain_reps)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, reps)
+    p2 = cuda_ms(plain, plain_reps)
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2), device_ms(kernel, reps)
 
 
@@ -1904,10 +1927,14 @@ def run_config5(dev) -> dict:
 # mcmc.usePallas=auto` over that YAML boolean as false (as base_tpu's do),
 # so the kernels are asked for with true.
 CLI_SETS = ("mcmc.warmup=32", "mcmc.runIter=2048", "mcmc.usePallas=true")
-# The CLI model's check (12a, 13b) runs on 16 of its 64 chains: the CPU
-# plain density at upsample 4 holds [C, S, T, B] tensors of 0.9 GB at 16
-# chains and B = 29.
-N_CHAINS_CLI_CHECK = 16
+# The CLI model's density check against the CPU (12a, 13b) runs on 16 of
+# its 64 chains: the CPU plain density at upsample 4 holds [C, S, T, B]
+# tensors of 0.9 GB at 16 chains and B = 29.  Its kernels are checked on
+# all 64.
+N_CHAINS_CPU_CHECK = 16
+# Chains a block of the plain marginal versions on the card take at once
+# (plain_blocks): the float64 residual form holds [C, S, T, B] tensors.
+PLAIN_BLOCK_BYTES = 1e9
 # make-cmd on the card against the CPU: one unit of the .4f format plus the
 # float32 floor of the magnitudes.
 CMD_TOL = 2e-4
@@ -2001,28 +2028,29 @@ def cli_model(s, table, dev, n_chains: int):
     return model, z
 
 
-def check_cli_model(s, table, dev, label: str = "12a",
-                    n_chains: int | None = None) -> dict:
+def check_cli_model(s, table, dev, label: str = "12a") -> dict:
     """Phase 12a's model check: the model the CLI builds from its .phot
     (n_q 16, upsample 4, its WDs with carbonicity and the IFMR free), at
-    the CLI's chains (or `n_chains`) around its start: each kernel against
-    its plain version (kernels 3-4 on the MS and the WD segment tables),
-    and log_post + gradient on the card against the CPU plain path, twice
-    bit for bit.  Returns {kernel: max abs error}; raises past the
-    tolerances."""
+    the CLI's chains around its start: each kernel against its plain
+    version (kernels 3-4 on the MS and the WD segment tables), and log_post
+    + gradient on the card against the CPU plain path on the first
+    N_CHAINS_CPU_CHECK chains, twice bit for bit.  Returns {kernel: max abs
+    error}; raises past the tolerances."""
     from base_tpu_torch.tools import main as cli
 
-    model, z = cli_model(s, table, dev, n_chains or s.mcmc.chains)
+    model, z = cli_model(s, table, dev, s.mcmc.chains)
     n_wd = 0 if model.wd_stars is None else model.wd_stars.obs_mags.shape[0]
     log(f"phase {label}: the CLI's model ({model.stars.obs_mags.shape[0]} "
         f"MS stars, {n_wd} WDs, {model.stars.obs_mags.shape[1]} bands, n_q "
-        f"{model.q_grid.shape[-1]}, upsample {model.upsample}, "
-        f"{z.shape[0]} chains): kernels vs plain, density card vs CPU")
+        f"{model.q_grid.shape[-1]}, upsample {model.upsample}): kernels vs "
+        f"plain on {z.shape[0]} chains, density card vs CPU on "
+        f"{N_CHAINS_CPU_CHECK}")
     errs = check_kernels(model, z, f"cli {label}")
     if model.wd_stars is not None:
         wd = check_marglik(wd_marglik_inputs(model, z), f"cli {label} WD")
         errs = {k: max(v, wd.get(k, 0.0)) for k, v in errs.items()}
-    check_density(model, cli._build_model_from_phot(s, table, "cpu"), z)
+    check_density(model, cli._build_model_from_phot(s, table, "cpu"),
+                  z[:N_CHAINS_CPU_CHECK])
     return errs
 
 
@@ -2066,7 +2094,7 @@ def run_cli(dev, hmc_res: dict) -> dict:
         table = read_phot(base + ".phot")
         n_wd = int((table.stage == 3).sum())
         errs = check_cli_model(load_settings(conf, list(CLI_SETS)), table,
-                               dev, "12a", N_CHAINS_CLI_CHECK)
+                               dev, "12a")
         reset_launch_counts()
         metrics_path = os.path.join(tmp, "m.jsonl")
         tool("single-pop", "--photFile", base + ".phot",
@@ -2160,24 +2188,30 @@ def run_cli(dev, hmc_res: dict) -> dict:
 # bands), packs them with `python -m base_tpu_torch.tools.main
 # convert-models`, and reads a table back through the native IO runtime.
 # 13b runs the CLI at conf/base9.yaml's widths on those grids with B = 29,
-# cut in depth only: 32 warmup transitions and 32 draws a chain (phase
-# 12's 64 + 64 took 125-276 s at B = 8 by host, and is 32 + 32 now), its
-# model check on N_CHAINS_CLI_CHECK chains.  13c drives the matmul form
+# cut in depth: 32 warmup transitions and 32 draws a chain (phase 12's 64
+# + 64 took 125-276 s at B = 8 by host, and is 32 + 32 now); its model's
+# density is checked against the CPU on N_CHAINS_CPU_CHECK of its chains.
+# 13c drives the matmul form
 # (kernels 3m and 4m) at the bench shapes (B = 8) and on 13b's MS table (B
 # = 29).
 WIDE_SETS = ("mcmc.warmup=32", "mcmc.runIter=2048", "mcmc.usePallas=true")
-# 13c: chains of the float64 residual reference (the [rows, S, T, B]
-# tensors at B = 29 and T = 5056 hold 0.45 GB a row in float64), and the
-# value + gradient calls of fused_log_marginals(..., matmul=True) that
-# make up the matmul form's own path at each width.
-MM_CHECK_ROWS = 4
+# 13c: the seeds of the chain points at which kernels 3m and 4m are
+# checked at each width (seed 1: the points the phase times), the value +
+# gradient calls of fused_log_marginals(..., matmul=True) that make up the
+# matmul form's own path at each width, and the calls of its plain
+# versions timed (they emulate the kernels' FMA chain in float64).
+MM_SEEDS = (1, 2, 3)
 MM_PATH_CALLS = 10
-# The matmul form against its plain version and the float64 residual form:
-# the expansion cancels in float32 (sum_b iv (obs - c)(lo - c) ~ 1e5 at
-# sigma 0.01 against chi2 ~ 1), and two float32 evaluations round apart by
-# as much as either is from float64.  So each kernel is held to MM_REL
-# times the plain version's own distance from float64, plus MM_ABS
-# (forward, abs) or MARGLIK_TOL (backward, scaled).
+MM_PLAIN_REPS = 2
+# The matmul form cancels in float32 (sum_b iv obs^2 reaches ~1e6 at 29
+# bands and sigma 0.01, against chi2 ~ 1), so it sits up to whole nats from
+# the float64 marginal.  Its plain version sums the products in the
+# kernels' order with their rounding, so kernels 3m and 4m are held to it
+# at MARGLIK_TOL, as kernels 3 and 4 are to theirs; the residual form
+# (kernels 3 and 4 on the same inputs), put in their place, must fail that
+# gate.  Against the float64 residual form each is held to MM_REL times
+# the plain version's own distance from it, plus MM_ABS (forward, abs) or
+# MARGLIK_TOL (backward, scaled).
 MM_REL, MM_ABS = 2.0, 1e-4
 
 
@@ -2254,52 +2288,66 @@ def marglik_mm_work(marg_in) -> dict:
 
 
 def check_mm(marg_in, label: str) -> dict:
-    """Kernels 3m and 4m against their plain versions and the float64
-    residual form on the first MM_CHECK_ROWS chains of the centered
-    inputs, each backward given its own forward's output; returns the
-    errors and budgets, with {kernel: max abs error against plain}.
-    Raises past MM_REL x the plain version's distance from float64, plus
-    MM_ABS (forward) or MARGLIK_TOL (backward, scaled)."""
+    """Kernels 3m and 4m against their plain versions on every chain of
+    the centered inputs, each backward given its own forward's output:
+    forward abs and backward scaled error within MARGLIK_TOL.  Kernels 3
+    and 4 on the same inputs (the residual form) are the control: they
+    must sit past that gate.  Both kernels against the float64 residual
+    form within MM_REL x the plain version's distance from it, plus MM_ABS
+    (forward) or MARGLIK_TOL (backward).  Returns the errors, with
+    {kernel: max abs error against plain}; raises on any miss."""
     from base_tpu_torch.ops import marglik as ml
 
-    rows = tuple(t[:MM_CHECK_ROWS] for t in marg_in[3:])
-    obs, lo, hi = ml.center_bands(marg_in[0], marg_in[1], rows[0], rows[1])
-    args = (obs, marg_in[1], marg_in[2], lo, hi, *rows[2:])
+    obs, lo, hi = ml.center_bands(marg_in[0], marg_in[1], marg_in[3],
+                                  marg_in[4])
+    args = (obs, marg_in[1], marg_in[2], lo, hi, *marg_in[5:])
     args64 = tuple(t.double() for t in args)
-    plain = ml.marglik_mm_fwd_plain(*args)
-    ref = ml.marglik_fwd_plain(*args64)
     got = ml.marglik_mm_fwd_cuda(*args)
+    ctrl = ml.marglik_fwd_cuda(*args)
+    plain = plain_blocks(ml.marglik_mm_fwd_plain, args)
+    ref = plain_blocks(ml.marglik_fwd_plain, args64)
     sel = ref > -200
-    plain_err = float((plain.double() - ref).abs()[sel].max())
-    budget = MM_REL * plain_err + MM_ABS
-    fwd_err = float((got - plain).abs()[sel].max())
-    fwd64 = float((got.double() - ref).abs()[sel].max())
+
+    def fwd_dist(a, b):
+        return float((a.double() - b.double()).abs()[sel].max())
+
     gen = torch.Generator(device=plain.device).manual_seed(7)
     g = torch.randn(plain.shape, generator=gen, device=plain.device)
     names = ("dlo", "dhi", "dlogw")
     # Each backward on its own forward's output, as autograd pairs them:
-    # the softmax weights exp(core - out') follow chi2's rounding, which
-    # here reaches the errors above.
+    # the softmax weights exp(core - out') follow chi2's rounding.
     bwd = ml.marglik_mm_bwd_cuda(*args, got, g)
-    bwd_plain = ml.marglik_mm_bwd_plain(*args, plain, g)
-    bwd_ref = ml.marglik_bwd_plain(*args64, ref, g.double())
+    bwd_ctrl = ml.marglik_bwd_cuda(*args, ctrl, g)
+    bwd_plain = plain_blocks(ml.marglik_mm_bwd_plain, args, plain, g)
+    bwd_ref = plain_blocks(ml.marglik_bwd_plain, args64, ref, g.double())
     bwd_abs, bwd_scaled, report = grad_errs(names, bwd, bwd_plain)
-    bwd64 = grad_errs(names, bwd, bwd_ref)[1]
+    plain_err = fwd_dist(plain, ref)
     plain64 = grad_errs(names, bwd_plain, bwd_ref)[1]
-    bwd_budget = MM_REL * plain64 + MARGLIK_TOL
-    res = dict(fwd_err=fwd_err, fwd_err_vs_float64=fwd64,
-               plain_err_vs_float64=plain_err, fwd_budget=budget,
-               bwd_abs=bwd_abs, bwd_scaled=bwd_scaled,
-               bwd_scaled_vs_float64=bwd64,
-               plain_bwd_scaled_vs_float64=plain64, bwd_budget=bwd_budget)
-    log(f"  [{label}] mm C={MM_CHECK_ROWS} B={obs.shape[1]}: "
+    res = dict(fwd_err=fwd_dist(got, plain), bwd_scaled=bwd_scaled,
+               bwd_abs=bwd_abs, control_fwd_err=fwd_dist(ctrl, plain),
+               control_bwd_scaled=grad_errs(names, bwd_ctrl, bwd_plain)[1],
+               fwd_err_vs_float64=fwd_dist(got, ref),
+               plain_err_vs_float64=plain_err,
+               fwd_budget_vs_float64=MM_REL * plain_err + MM_ABS,
+               bwd_scaled_vs_float64=grad_errs(names, bwd, bwd_ref)[1],
+               plain_bwd_scaled_vs_float64=plain64,
+               bwd_budget_vs_float64=MM_REL * plain64 + MARGLIK_TOL)
+    log(f"  [{label}] mm C={lo.shape[0]} "
+        f"S={obs.shape[0]} T={lo.shape[1]} B={obs.shape[1]}: "
         f"{json.dumps(res)}; bwd abs/scaled {report}")
-    if not (fwd_err <= budget and fwd64 <= budget):
-        raise AssertionError(f"[{label}] marglik_mm_fwd past {budget:.3e}")
-    if not (bwd_scaled <= bwd_budget and bwd64 <= bwd_budget):
-        raise AssertionError(f"[{label}] marglik_mm_bwd past "
-                             f"{bwd_budget:.3e}")
-    return dict(res, max_abs_err={"marglik_mm_fwd": fwd_err,
+    if not (res["fwd_err"] <= MARGLIK_TOL and bwd_scaled <= MARGLIK_TOL):
+        raise AssertionError(f"[{label}] a matmul-form kernel disagrees with "
+                             f"its plain version past {MARGLIK_TOL}")
+    if not (res["control_fwd_err"] > MARGLIK_TOL
+            and res["control_bwd_scaled"] > MARGLIK_TOL):
+        raise AssertionError(f"[{label}] the residual form passes the "
+                             f"matmul form's gate: it tells nothing here")
+    if not (res["fwd_err_vs_float64"] <= res["fwd_budget_vs_float64"]
+            and res["bwd_scaled_vs_float64"]
+            <= res["bwd_budget_vs_float64"]):
+        raise AssertionError(f"[{label}] a matmul-form kernel past its "
+                             f"float64 budget")
+    return dict(res, max_abs_err={"marglik_mm_fwd": res["fwd_err"],
                                   "marglik_mm_bwd": bwd_abs})
 
 
@@ -2331,7 +2379,8 @@ def mm_path(inputs: dict) -> dict:
 
 def time_mm(marg_in) -> dict:
     """Kernels 3, 3m, 4 and 4m on the same inputs (3m and 4m on them
-    centered): time_pair against the plain version of each, and bounds."""
+    centered): time_pair against the plain version of each (MM_PLAIN_REPS
+    calls of the matmul form's), and bounds."""
     from base_tpu_torch.ops import marglik as ml
 
     obs, lo, hi = ml.center_bands(marg_in[0], marg_in[1], marg_in[3],
@@ -2343,10 +2392,11 @@ def time_mm(marg_in) -> dict:
     times = dict(time_marglik(marg_in))
     times["marglik_mm_fwd"] = time_pair(
         lambda: ml.marglik_mm_fwd_cuda(*cent),
-        lambda: ml.marglik_mm_fwd_plain(*cent))
+        lambda: ml.marglik_mm_fwd_plain(*cent), plain_reps=MM_PLAIN_REPS)
     times["marglik_mm_bwd"] = time_pair(
         lambda: ml.marglik_mm_bwd_cuda(*cent, out_mm, gs),
-        lambda: ml.marglik_mm_bwd_plain(*cent, out_mm, gs))
+        lambda: ml.marglik_mm_bwd_plain(*cent, out_mm, gs),
+        plain_reps=MM_PLAIN_REPS)
     work = {**marglik_work(marg_in, bwd=True), **marglik_mm_work(marg_in)}
     res = {}
     for name, (ms, plain_ms, dev) in times.items():
@@ -2360,12 +2410,13 @@ def time_mm(marg_in) -> dict:
 def run_wide(dev, bench) -> dict:
     """Phase 13: (a) text grids in 29 bands -> convert-models -> native IO;
     (b) the CLI on the converted grids at B = 29: the model checked
-    (check_cli_model on 16 chains), single-pop --metrics with every
+    (check_cli_model), single-pop --metrics with every
     kernel's launches held to the density calls counted, the age within 4
     sd of the truth; kernels 1-4 timed beside their bounds on its 64
     chains; (c) the matmul form against its plain version and float64 at
-    `bench` = (model, z) (B = 8) and on 13b's MS table (B = 29), its own
-    path's launches, and each form's device ms beside its bound."""
+    `bench` = (model, z) (B = 8) and on 13b's MS table (B = 29), at the
+    chain points of each of MM_SEEDS, its own path's launches, and each
+    form's device ms beside its bound."""
     import os
     import tempfile
     from pathlib import Path
@@ -2430,8 +2481,7 @@ def run_wide(dev, bench) -> dict:
         tool("scatter", "--photFile", base + ".sim.phot")
         table = read_phot(base + ".phot")
         n_wd = int((table.stage == 3).sum())
-        res["max_abs_err"] = check_cli_model(s, table, dev, "13b",
-                                             N_CHAINS_CLI_CHECK)
+        res["max_abs_err"] = check_cli_model(s, table, dev, "13b")
         model, z = cli_model(s, table, dev, s.mcmc.chains)
         if model.stars.obs_mags.shape[1] != len(bands):
             raise AssertionError("13b: the CLI's model lost bands")
@@ -2488,9 +2538,20 @@ def run_wide(dev, bench) -> dict:
     log("  " + json.dumps(res["kernels_b29"]))
 
     log("phase 13c: the matmul form (kernels 3m, 4m) at B = 8 and B = 29")
+    from base_tpu_torch.model import posterior as post
+
+    points = {
+        "bench": lambda seed: chain_points(bench[0], 0.05, seed=seed),
+        "b29": lambda seed: chain_points(
+            model, 0.05, seed=seed, truth=s.cluster.start_vector(),
+            n_chains=s.mcmc.chains, free=post.free_mask(model))}
+    models = {"bench": bench[0], "b29": model}
+    res["mm_check"] = {
+        f"{k} seed {seed}": check_mm(
+            kernel_inputs(models[k], points[k](seed))[1], f"{k} seed {seed}")
+        for k in points for seed in MM_SEEDS}
     inputs = {"bench": kernel_inputs(*bench)[1],
               "b29": kernel_inputs(model, z)[1]}
-    res["mm_check"] = {k: check_mm(v, k) for k, v in inputs.items()}
     res["mm_launches"] = mm_path(inputs)
     res["mm_times"] = {k: time_mm(v) for k, v in inputs.items()}
     for label, t in res["mm_times"].items():
