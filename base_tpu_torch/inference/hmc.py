@@ -11,6 +11,12 @@ mass matrix re-estimated from the samples POOLED over chains.  Randomness
 comes from one explicit `torch.Generator` whose stream the functions
 consume in a fixed order, so the chunked runner and `run_hmc` agree bit
 for bit under one seed.
+
+- `group`: when the chains are sharded over ranks (parallel.run), the
+  chain group of the mesh (base_tpu's `axis_name`).  The warmup's pooled
+  moments and the frozen step size are then reduced over it
+  (parallel.comm), so every chain shard adapts the same metric and step
+  size; with group None nothing is reduced across ranks.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from base_tpu_torch.ops.special import NEG_INF
+from base_tpu_torch.parallel.comm import pmean, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,27 +223,39 @@ def hmc_transition(
     return new, accept_prob
 
 
-def _pooled_mean_var(zs: torch.Tensor):
-    """Mean/variance of zs [..., P] pooled over all leading axes."""
-    flat = zs.reshape(-1, zs.shape[-1])
+def _count(flat: torch.Tensor, group) -> float:
+    """The number of rows of flat [n, P] over the group's ranks."""
     n = float(flat.shape[0])
-    mean = flat.sum(0) / n
-    var = (flat * flat).sum(0) / n - mean * mean
+    if group is None:
+        return n
+    return float(psum(flat.new_tensor(n), group))
+
+
+def _pooled_mean_var(zs: torch.Tensor, group=None):
+    """Mean/variance of zs [..., P] pooled over all leading axes and, with
+    a group, over its ranks (sums psum-ed)."""
+    flat = zs.reshape(-1, zs.shape[-1])
+    n = _count(flat, group)
+    mean = psum(flat.sum(0), group) / n
+    var = psum((flat * flat).sum(0), group) / n - mean * mean
     return mean, var.clamp_min(0.0)
 
 
-def _pooled_cov(zs: torch.Tensor) -> torch.Tensor:
-    """Full covariance of zs [..., P] pooled over all leading axes.
+def _pooled_cov(zs: torch.Tensor, group=None) -> torch.Tensor:
+    """Full covariance of zs [..., P] pooled over all leading axes and,
+    with a group, over its ranks.
 
     Centered two-pass form (the one-pass E[xx^T] - mu mu^T cancels
     catastrophically in float32 for parameters with large mean and small
-    posterior sd), with Stan-style shrinkage toward a scaled identity."""
+    posterior sd): the mean is pooled first (one [P] psum), then the
+    second moment of the centered samples (one [P, P] psum); with
+    Stan-style shrinkage toward a scaled identity."""
     P = zs.shape[-1]
     flat = zs.reshape(-1, P)
-    n = float(flat.shape[0])
-    mean = flat.sum(0) / n
+    n = _count(flat, group)
+    mean = psum(flat.sum(0), group) / n
     c = flat - mean[None, :]
-    cov = (c.T @ c) / n
+    cov = psum(c.T @ c, group) / n
     cov = 0.5 * (cov + cov.T)
     scale = torch.trace(cov) / P
     w = n / (n + 5.0)
@@ -253,21 +272,21 @@ def init_chains(logpost_fn: Callable, init_z: torch.Tensor,
                          da=da_init(cfg.init_step, C, init_z.device))
 
 
-def _window_update(states, inv_mass, zs, w: int, cfg, mask):
+def _window_update(states, inv_mass, zs, w: int, cfg, mask, group=None):
     """Between-window adaptation, shared by HMC and NUTS (`cfg` an
     HMCConfig or a nuts.NUTSConfig: its n_windows and dense_mass).  Every
-    window but the last installs the
-    pooled (co)variance estimate as the metric (pinned dims get a unit
-    diagonal and no cross terms) and restarts dual averaging at each
+    window but the last installs the (co)variance estimate pooled over
+    the chains (and the group's ranks) as the metric (pinned dims get a
+    unit diagonal and no cross terms) and restarts dual averaging at each
     chain's current eps; the last keeps its metric, and its DA average
     becomes the frozen step size."""
     if w >= cfg.n_windows - 1:
         return states, inv_mass
     if cfg.dense_mass:
-        est = _pooled_cov(zs)
+        est = _pooled_cov(zs, group)
         est = est * (mask[:, None] * mask[None, :]) + torch.diag(1.0 - mask)
     else:
-        _, var = _pooled_mean_var(zs)
+        _, var = _pooled_mean_var(zs, group)
         est = (var + 1e-6) * mask + (1.0 - mask)
     da = states.da
     fresh = DAState(
@@ -280,10 +299,11 @@ def _window_update(states, inv_mass, zs, w: int, cfg, mask):
     return states._replace(da=fresh), est
 
 
-def make_warmup_window(logpost_fn: Callable, cfg: HMCConfig) -> Callable:
+def make_warmup_window(logpost_fn: Callable, cfg: HMCConfig,
+                       group=None) -> Callable:
     """One warmup window `(states, inv_mass, w, gen) -> (states,
     inv_mass)`.  Looping it over w = 0..n_windows-1 is warmup(); finish
-    with `freeze_step_size(states)` for the sampling eps."""
+    with `freeze_step_size(states, group)` for the sampling eps."""
     vgrad = value_and_grad(logpost_fn)
 
     def window_fn(states, inv_mass, w: int, gen: torch.Generator):
@@ -300,15 +320,16 @@ def make_warmup_window(logpost_fn: Callable, cfg: HMCConfig) -> Callable:
                 da=da_update(states.da, ap, cfg.target_accept))
             zs.append(states.z)
         zs = torch.stack(zs, dim=1)                      # [C, seg_len, P]
-        return _window_update(states, inv_mass, zs, w, cfg, mask)
+        return _window_update(states, inv_mass, zs, w, cfg, mask, group)
 
     return window_fn
 
 
-def freeze_step_size(states: HMCChainState) -> torch.Tensor:
+def freeze_step_size(states: HMCChainState, group=None) -> torch.Tensor:
     """Frozen sampling eps = cross-chain mean of the terminal window's DA
-    average, in log space."""
-    return torch.exp(states.da.log_eps_avg.mean())
+    average, in log space (with a group, the pmean of the ranks' local
+    means)."""
+    return torch.exp(pmean(states.da.log_eps_avg.mean(), group))
 
 
 def initial_metric(cfg: HMCConfig, P: int, device) -> torch.Tensor:
@@ -317,15 +338,16 @@ def initial_metric(cfg: HMCConfig, P: int, device) -> torch.Tensor:
 
 
 def warmup(logpost_fn: Callable, states: HMCChainState, cfg: HMCConfig,
-           gen: torch.Generator, inv_mass0: torch.Tensor | None = None):
+           gen: torch.Generator, inv_mass0: torch.Tensor | None = None,
+           group=None):
     """Windowed warmup.  Returns (states, inv_mass, eps)."""
     P = states.z.shape[-1]
     inv_mass = (initial_metric(cfg, P, states.z.device)
                 if inv_mass0 is None else inv_mass0)
-    window_fn = make_warmup_window(logpost_fn, cfg)
+    window_fn = make_warmup_window(logpost_fn, cfg, group)
     for w in range(cfg.n_windows):
         states, inv_mass = window_fn(states, inv_mass, w, gen)
-    return states, inv_mass, freeze_step_size(states)
+    return states, inv_mass, freeze_step_size(states, group)
 
 
 def sample_chunk(logpost_fn: Callable, states: HMCChainState,
@@ -350,11 +372,14 @@ def sample_chunk(logpost_fn: Callable, states: HMCChainState,
 
 
 def run_hmc(logpost_fn: Callable, init_z: torch.Tensor, gen: torch.Generator,
-            cfg: HMCConfig = HMCConfig()):
+            cfg: HMCConfig = HMCConfig(), group=None):
     """Warmup + sampling.  Returns (samples [n_rec, C, P] in
-    unconstrained space, info dict)."""
+    unconstrained space, info dict).  With a group, init_z is this rank's
+    chains and the warmup pools over the group's ranks; the outputs stay
+    this rank's (parallel.run assembles them)."""
     states = init_chains(logpost_fn, init_z, cfg)
-    states, inv_mass, eps_final = warmup(logpost_fn, states, cfg, gen)
+    states, inv_mass, eps_final = warmup(logpost_fn, states, cfg, gen,
+                                         group=group)
     states, zs, lps, aps = sample_chunk(
         logpost_fn, states, inv_mass, eps_final,
         cfg.n_samples // cfg.thin, cfg, gen,

@@ -23,7 +23,11 @@ still evaluated, so the launch shapes stay fixed).
   seed.
 
 Dual averaging and windowed mass adaptation reuse inference.hmc's
-machinery; run_nuts mirrors run_hmc's interface.
+machinery; run_nuts mirrors run_hmc's interface, `group` included (the
+chain group of a mesh: the warmup's moments and the frozen step size pool
+over its ranks).  Every rank of a star group evaluates the same chains, so
+its U-turn and divergence decisions, and with them its density calls, are
+those of the other ranks of the group (parallel.run).
 """
 from __future__ import annotations
 
@@ -271,22 +275,14 @@ def init_nuts_chains(logpost_fn: Callable, init_z: torch.Tensor,
                           da=da_init(cfg.init_step, C, init_z.device))
 
 
-def _no_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: the port has no process group for sharded chains "
-            "yet; run on one device with axis_name=None")
-
-
 def make_nuts_warmup_window(
     logpost_fn: Callable,
     cfg: NUTSConfig,
-    axis_name: str | None = None,
+    group=None,
 ) -> Callable:
     """One warmup window `(states, inv_mass, w, gen) -> (states,
     inv_mass)`, the NUTS analog of hmc.make_warmup_window (same schedule,
-    shared _window_update)."""
-    _no_axis(axis_name)
+    shared _window_update, pooled over `group`'s ranks)."""
     vgrad = value_and_grad(logpost_fn)
     seg_len = max(cfg.n_warmup // cfg.n_windows, 1)
 
@@ -304,7 +300,7 @@ def make_nuts_warmup_window(
                 da=da_update(states.da, acc, cfg.target_accept))
             zs.append(states.z)
         zs = torch.stack(zs, dim=1)                       # [C, seg_len, P]
-        return _window_update(states, inv_mass, zs, w, cfg, mask)
+        return _window_update(states, inv_mass, zs, w, cfg, mask, group)
 
     return window_fn
 
@@ -345,19 +341,18 @@ def run_nuts(
     init_z: torch.Tensor,     # [C, P]
     gen: torch.Generator,
     cfg: NUTSConfig = NUTSConfig(),
-    axis_name: str | None = None,
+    group=None,
 ):
     """Warmup (dual averaging + pooled mass windows) + sampling, NUTS
     kernel.  Same interface and contract as hmc.run_hmc: (samples
-    [n_rec, C, P], info)."""
-    _no_axis(axis_name)
+    [n_rec, C, P], info), this rank's chains under a group."""
     P = init_z.shape[-1]
     states = init_nuts_chains(logpost_fn, init_z, cfg)
-    window_fn = make_nuts_warmup_window(logpost_fn, cfg)
+    window_fn = make_nuts_warmup_window(logpost_fn, cfg, group)
     inv_mass = initial_metric(cfg, P, init_z.device)
     for w in range(cfg.n_windows):
         states, inv_mass = window_fn(states, inv_mass, w, gen)
-    eps_final = freeze_step_size(states)
+    eps_final = freeze_step_size(states, group)
     states, zs, lps, accs, nlfs = nuts_sample_chunk(
         logpost_fn, states, inv_mass, eps_final, cfg.n_samples // cfg.thin,
         cfg, gen)

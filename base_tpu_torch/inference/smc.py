@@ -28,6 +28,14 @@ result.  A move carries each particle's log target and log q0 along, so a
 stage calls the density n_move times and never again at the resampled or
 moved points.  Density calls run under `torch.no_grad()`.
 
+Sharded (parallel.run.run_smc_sharded): with `group` the chain group of a
+mesh, each rank holds N particles of every replicate and the statistics
+pool over the group's ranks (base_tpu's `axis_name`): the ESS and the
+evidence increment through pmax / psum, the move moments through psum,
+the move acceptance through pmean; resampling all-gathers the weights and
+particles, takes every shard's uniform from the group's first rank, and
+each rank keeps its slice of the global ancestry.
+
 Returns particles ~ target, plus the log normalizing-constant estimate
 (log evidence).
 """
@@ -41,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from base_tpu_torch.ops.special import NEG_INF
+from base_tpu_torch.parallel.comm import all_gather, pmax, pmean, psum
+from base_tpu_torch.parallel.comm import rank as group_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,13 +75,6 @@ class SMCState(NamedTuple):
     beta: torch.Tensor            # [R] in [0, 1]
     log_evidence: torch.Tensor    # [R]
     log_move_scale: torch.Tensor  # [R] adapted log move multiplier
-
-
-def _no_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: the port has no process group for sharded "
-            "particles yet; run on one device with axis_name=None")
 
 
 def _rowsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -100,23 +103,28 @@ def _rowcumsum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _ess_fraction(log_w: torch.Tensor, n_total, axis_name=None):
+def _ess_fraction(log_w: torch.Tensor, n_total, group=None):
     """Effective sample size fraction of normalized weights exp(log_w)
-    over the last axis ([..., N] -> [...])."""
-    _no_axis(axis_name)
-    m = log_w.amax(-1, keepdim=True)
+    over the last axis ([..., N] -> [...]), and over the group's ranks."""
+    m = pmax(log_w.amax(-1, keepdim=True), group)
     w = torch.exp(log_w - m)
-    s1 = _rowsum(w)
-    s2 = _rowsum(w * w)
+    s1 = psum(_rowsum(w), group)
+    s2 = psum(_rowsum(w * w), group)
     return (s1 * s1) / s2.clamp_min(1e-38) / n_total
 
 
 def _systematic_resample(u: torch.Tensor, log_w: torch.Tensor,
-                         z: torch.Tensor, axis_name=None):
+                         z: torch.Tensor, group=None):
     """Systematic resampling of each replicate: log_w [R, N], particles z
     [R, N, P] and one uniform u [R] in [0, 1) per replicate, drawn by the
-    caller.  Returns (resampled particles [R, N, P], ancestors [R, N])."""
-    _no_axis(axis_name)
+    caller.  Returns (resampled particles [R, N, P], ancestors [R, N]).
+    With a group (u equal on its ranks), the weights and particles of its
+    ranks are gathered into [R, G * N] in rank order, and each rank keeps
+    its slice of the global ancestry: ancestors index the gathered
+    particles."""
+    n_local = log_w.shape[-1]
+    log_w = all_gather(log_w, group, dim=1)
+    z = all_gather(z, group, dim=1)
     N = log_w.shape[-1]
     w = torch.exp(log_w - log_w.amax(-1, keepdim=True))
     w = w / _rowsum(w)[:, None]
@@ -125,6 +133,8 @@ def _systematic_resample(u: torch.Tensor, log_w: torch.Tensor,
                                           device=w.device) / N
     anc = torch.searchsorted(cum.contiguous(), pts.contiguous())
     anc = anc.clamp(0, N - 1)
+    if group is not None:
+        anc = anc[:, group_rank(group) * n_local:][:, :n_local]
     return torch.gather(z, 1, anc[..., None].expand(-1, -1, z.shape[-1])), anc
 
 
@@ -135,11 +145,11 @@ def _draw_per_replicate(gens, fn) -> torch.Tensor:
 
 @torch.no_grad()
 def _smc_init(log_target, sample_q0, log_q0, gens, cfg: SMCConfig,
-              axis_name=None):
+              group=None):
     """The initial state of len(gens) replicates, each with N particles
     from its own generator: sample_q0(gen, N) -> [N, P].  Returns (state,
-    n_total), n_total the particles per replicate."""
-    _no_axis(axis_name)
+    n_total), n_total the particles per replicate (over the group's
+    ranks)."""
     z = torch.cat([sample_q0(g, cfg.n_particles) for g in gens])
     R = len(gens)
     dev = z.device
@@ -150,17 +160,20 @@ def _smc_init(log_target, sample_q0, log_q0, gens, cfg: SMCConfig,
         log_move_scale=torch.full((R,), math.log(cfg.move_scale),
                                   device=dev),
     )
-    return state, float(cfg.n_particles)
+    n_total = float(cfg.n_particles)
+    if group is not None:
+        n_total = float(psum(z.new_tensor(n_total), group))
+    return state, n_total
 
 
-def _make_smc_stage(log_target, log_q0, cfg: SMCConfig, axis_name,
+def _make_smc_stage(log_target, log_q0, cfg: SMCConfig, group,
                     n_total: float, d: int):
     """One SMC stage of every replicate as `stage(state, gens) -> (state,
     (beta_new [R], move accept [R], active [R]))`, shared by run_smc,
-    run_smc_replicated and the chunked runner.  Draws, per replicate in
-    order of replicates: the resampling uniform; then per move the
-    proposal normals [N, P] and the accept uniforms [N]."""
-    _no_axis(axis_name)
+    run_smc_replicated and the chunked runner, pooled over `group`'s
+    ranks.  Draws, per replicate in order of replicates: the resampling
+    uniform (with a group, the one of its first rank is used); then per
+    move the proposal normals [N, P] and the accept uniforms [N]."""
 
     @torch.no_grad()
     def stage(state: SMCState, gens):
@@ -175,7 +188,8 @@ def _make_smc_stage(log_target, log_q0, cfg: SMCConfig, axis_name,
                               torch.full_like(delta_l, NEG_INF))
 
         def ess_at(b_new):
-            return _ess_fraction((b_new - beta)[:, None] * delta_l, n_total)
+            return _ess_fraction((b_new - beta)[:, None] * delta_l, n_total,
+                                 group)
 
         # Bisection for the largest step keeping ESS >= target.
         full = ess_at(torch.ones_like(beta)) >= cfg.ess_target
@@ -189,19 +203,24 @@ def _make_smc_stage(log_target, log_q0, cfg: SMCConfig, axis_name,
         beta_new = torch.where(done, beta, beta_new.clamp(max=1.0))
 
         log_w = (beta_new - beta)[:, None] * delta_l
-        m = log_w.amax(-1)
-        lsum = torch.log(_rowsum(torch.exp(log_w - m[:, None])))
+        m = pmax(log_w.amax(-1), group)
+        lsum = torch.log(psum(_rowsum(torch.exp(log_w - m[:, None])), group))
         log_ev_inc = m + lsum - math.log(n_total)
 
         u = _draw_per_replicate(
             gens, lambda g: torch.rand((), generator=g, device=beta.device))
-        z, anc = _systematic_resample(u, log_w, state.z.view(R, N, P))
-        lt = torch.gather(state.log_target.view(R, N), 1, anc)
-        lq = torch.gather(state.log_q0.view(R, N), 1, anc)
+        if group is not None:
+            u = all_gather(u[None], group)[0]
+        z, anc = _systematic_resample(u, log_w, state.z.view(R, N, P), group)
+        lt = torch.gather(all_gather(state.log_target.view(R, N), group, 1),
+                          1, anc)
+        lq = torch.gather(all_gather(state.log_q0.view(R, N), group, 1),
+                          1, anc)
 
         # Per-replicate particle variance for the move proposal (diagonal).
-        mean = _rowsum(z, 1) / n_total
-        var = (_rowsum(z * z, 1) / n_total - mean * mean).clamp_min(1e-10)
+        mean = psum(_rowsum(z, 1), group) / n_total
+        var = (psum(_rowsum(z * z, 1), group) / n_total
+               - mean * mean).clamp_min(1e-10)
         scale = torch.exp(state.log_move_scale)
         prop_sd = torch.sqrt(var) * torch.sqrt(scale * 2.38**2 / d)[:, None]
 
@@ -226,7 +245,7 @@ def _make_smc_stage(log_target, log_q0, cfg: SMCConfig, axis_name,
             lt = torch.where(acc, lt_p, lt)
             lq = torch.where(acc, lq_p, lq)
             acc_sum = acc_sum + _rowsum(acc.to(z.dtype)) / N
-        stage_acc = acc_sum / cfg.n_move
+        stage_acc = pmean(acc_sum / cfg.n_move, group)
 
         # Autotune the move scale toward the target acceptance.
         lms = state.log_move_scale
@@ -260,12 +279,15 @@ def replicate_generators(gen: torch.Generator,
             for s in seeds]
 
 
-def _run_stages(log_target, sample_q0, log_q0, gens, cfg: SMCConfig):
+def _run_stages(log_target, sample_q0, log_q0, gens, cfg: SMCConfig,
+                group=None):
     """Init and stages until every replicate has reached beta = 1 (or
     max_stages): one density call, then n_move a stage.  Returns (state,
-    betas, accs, actives), each of the last three [stages run, R]."""
-    state, n_total = _smc_init(log_target, sample_q0, log_q0, gens, cfg)
-    stage = _make_smc_stage(log_target, log_q0, cfg, None, n_total,
+    betas, accs, actives), each of the last three [stages run, R].  The
+    betas are equal on a group's ranks, so they stop together."""
+    state, n_total = _smc_init(log_target, sample_q0, log_q0, gens, cfg,
+                               group)
+    stage = _make_smc_stage(log_target, log_q0, cfg, group, n_total,
                             state.z.shape[-1])
     betas, accs, actives = [], [], []
     for _ in range(cfg.max_stages):
@@ -297,25 +319,29 @@ def run_smc(
     log_q0: Callable[[torch.Tensor], torch.Tensor],
     gen: torch.Generator,
     cfg: SMCConfig = SMCConfig(),
-    axis_name: str | None = None,
+    group=None,
 ):
     """Run adaptive tempered SMC.  log_target and log_q0 map particles
     [n, P] -> [n]; sample_q0(gen, n) -> [n, P].
 
     Returns (particles [N, P], info dict with log_evidence, n_stages,
-    final beta, acceptance, betas [max_stages], move_scale)."""
-    _no_axis(axis_name)
+    final beta, acceptance, betas [max_stages], move_scale); with a group,
+    this rank's particles and the pooled statistics."""
     state, betas, accs, actives = _run_stages(log_target, sample_q0, log_q0,
-                                              [gen], cfg)
-    info = dict(
+                                              [gen], cfg, group)
+    return state.z, _single_info(state, betas, accs, actives, cfg.max_stages)
+
+
+def _single_info(state, betas, accs, actives, max_stages: int) -> dict:
+    """run_smc's info of a run of one replicate."""
+    return dict(
         log_evidence=state.log_evidence[0],
         beta=state.beta[0],
         n_stages=actives.sum(),
         accept=_replicate_accept(accs, actives)[0],
-        betas=_padded_betas(betas, cfg.max_stages)[0],
+        betas=_padded_betas(betas, max_stages)[0],
         move_scale=torch.exp(state.log_move_scale[0]),
     )
-    return state.z, info
 
 
 def _replicated_info(state, betas, accs, actives, n_rep: int) -> dict:

@@ -12,6 +12,11 @@ dense metric.
 The noise comes from an explicit `torch.Generator`, drawn up front as
 `[n_steps, n_mc, P]`; `fit_vi` runs the Adam loop on given noise, so that
 any source of draws (another framework's included) can drive it.
+
+With `group` (the chain group of a mesh, parallel.run.run_vi_sharded)
+every rank draws its own noise, and the ELBO and its gradient are
+pmean-ed over the group's ranks before each Adam update, so the
+variational parameters stay equal on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from base_tpu_torch.parallel.comm import pmean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +61,10 @@ def fit_vi(
     init_mu: torch.Tensor,
     noise: torch.Tensor,
     cfg: VIConfig = VIConfig(),
+    group=None,
 ) -> VIResult:
     """The Adam loop on given standard-normal noise [n_steps, n_mc, P],
-    one step per leading row."""
+    one step per leading row; gradient and ELBO pooled over `group`."""
     P = init_mu.shape[0]
     dev = init_mu.device
     mu = init_mu.detach().clone().requires_grad_(True)
@@ -78,8 +86,11 @@ def fit_vi(
         elbo = logpost_z(z).mean() + log_diag.sum() + half_const
         opt.zero_grad()
         (-elbo).backward()
+        if group is not None:
+            for p in (mu, s):
+                p.grad = pmean(p.grad, group)
         opt.step()
-        return elbo.detach()
+        return pmean(elbo.detach(), group)
 
     with torch.enable_grad():
         elbo_trace = torch.stack([step(eps) for eps in noise])
@@ -137,6 +148,24 @@ def sample_posterior(res: VIResult, gen: torch.Generator,
     return res.mu[None, :] + eps * res.scale[None, :]
 
 
+WARM_START_CFG = VIConfig(n_steps=600, n_mc=8, full_rank=True,
+                          learning_rate=2e-2, init_log_sd=-4.0)
+
+
+def warm_start_draws(res: VIResult, z0: torch.Tensor, gen: torch.Generator,
+                     n_chains: int, free_mask=None):
+    """(init_z [n_chains, P], inv_mass0 [P, P]) of a fitted family: its
+    draws from `gen` and its covariance, pinned dims (free_mask 0) at
+    z0's value with a unit diagonal."""
+    cov = posterior_covariance(res)
+    draws = sample_posterior(res, gen, n_chains)
+    if free_mask is not None:
+        m = torch.as_tensor(free_mask, dtype=torch.float32, device=z0.device)
+        cov = cov * (m[:, None] * m[None, :]) + torch.diag(1.0 - m)
+        draws = torch.where(m[None, :] > 0, draws, z0[None, :])
+    return draws, cov
+
+
 def vi_warm_start(
     logpost_z: Callable[[torch.Tensor], torch.Tensor],
     z0: torch.Tensor,
@@ -154,14 +183,6 @@ def vi_warm_start(
     keep z0's value in the draws and a unit diagonal in the metric, as
     hmc._window_update projects them.  The chains' draws follow the VI
     noise in `gen`'s stream."""
-    if cfg is None:
-        cfg = VIConfig(n_steps=600, n_mc=8, full_rank=True,
-                       learning_rate=2e-2, init_log_sd=-4.0)
-    res = run_vi_chunked(logpost_z, z0, gen, cfg, chunk_steps)
-    cov = posterior_covariance(res)
-    draws = sample_posterior(res, gen, n_chains)
-    if free_mask is not None:
-        m = torch.as_tensor(free_mask, dtype=torch.float32, device=z0.device)
-        cov = cov * (m[:, None] * m[None, :]) + torch.diag(1.0 - m)
-        draws = torch.where(m[None, :] > 0, draws, z0[None, :])
-    return draws, cov, res
+    res = run_vi_chunked(logpost_z, z0, gen, cfg or WARM_START_CFG,
+                         chunk_steps)
+    return (*warm_start_draws(res, z0, gen, n_chains, free_mask), res)

@@ -6,13 +6,16 @@ plain C interface, which is loaded with ctypes.  The library lands in
 `base_tpu_torch/_build/` (git-ignored) under a name keyed on a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  The build runs at the first CUDA launch, never at import; a
-missing `nvcc` or a failed build raises.  No `--use_fast_math`: the erf
+missing `nvcc` or a failed build raises.  Ranks started together (torchrun)
+build once: the build holds a lock file in `_build/`, and a rank that
+waited on it finds the library built.  No `--use_fast_math`: the erf
 polynomial, expf in the far tails and the 1e-15 / 1e-12 floors of the
 marginal kernels need IEEE float32.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -95,6 +98,14 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, cmds = [], []
@@ -114,7 +125,6 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
         os.replace(so, out)  # atomic: a concurrent build sees all or none
-    return out
 
 
 @functools.cache

@@ -39,8 +39,19 @@ k)` seeded `seed + k * 2**32` (`_gen`), with base_tpu's j and k:
 The draws follow base_tpu's distributions, not its random bits.  MH runs
 every chain in one batched density call a step (mh.run_adaptive_mh).
 
-Not yet ported: `--mesh` (the parallel layer); it exits non-zero with a
-message.
+`--mesh C,S` (single-pop and multi-pop; the other tools ignore it, as
+base_tpu's do) runs the sampler over a (chains x stars) mesh of C * S
+ranks (base_tpu_torch.parallel): under `torchrun` the tool joins the
+world it was started in and checks C * S == WORLD_SIZE; otherwise it
+starts the C * S ranks itself (torch.multiprocessing, spawn), after
+building the CUDA kernels once.  The backend follows
+parallel.distributed's rule (NCCL with a card per rank, else gloo).  Every
+sampler runs sharded (parallel.run): hmc through the chunked driver
+(checkpointed with --resume), nuts, smc (mcmc.runIter particles over the
+chain shards), vi (its Monte Carlo draws over the chain shards) and mh
+(with the useDuringBurnIn model on the same star shards).  Chain shard ci
+draws from `Mesh.chain_generator` of the generator above.  Rank 0 alone
+writes the .res, the metrics and the checkpoint, and prints the summary.
 """
 from __future__ import annotations
 
@@ -89,7 +100,7 @@ def _common(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "--mesh", default=None, metavar="C,S",
-        help="not yet ported: waits for the parallel layer",
+        help="shard over a (chains x stars) mesh of C*S ranks, e.g. 2,2",
     )
     parser.add_argument(
         "--resume", action="store_true",
@@ -119,6 +130,9 @@ def _settings(args) -> Settings:
 
 
 def _device(args) -> torch.device:
+    mesh = _mesh(args)
+    if mesh is not None:
+        return mesh.device
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -127,6 +141,17 @@ def _device(args) -> torch.device:
             f"the CPU"
         )
     return dev
+
+
+def _mesh(args):
+    """The rank's parallel.mesh.Mesh of a sharded run, else None."""
+    return getattr(args, "mesh_ctx", None)
+
+
+def _lead(args) -> bool:
+    """Whether this process writes the outputs: rank 0, or the only one."""
+    mesh = _mesh(args)
+    return mesh is None or mesh.rank == 0
 
 
 def _gen(device: torch.device, seed: int, k: int = 0) -> torch.Generator:
@@ -325,10 +350,14 @@ def _announce_draws(s: Settings, n_chains: int) -> None:
 def _window_logger(mlog, names):
     """Streaming per-window diagnostics hook for the chunked driver:
     R-hat/ESS/acceptance per recorded window, not one post-hoc row
-    (SURVEY.md §5 metrics plan)."""
+    (SURVEY.md §5 metrics plan).  In a sharded run every rank gets the
+    hook (the driver gathers the window on all of them); only rank 0 has
+    a logger."""
     from base_tpu_torch.inference import diagnostics as diag
 
     def on_window(ci, zs, lps):
+        if mlog is None:
+            return
         rhat = _np(diag.split_rhat(zs))
         ess = _np(diag.ess(zs))
         mlog.log(
@@ -351,12 +380,15 @@ def _start_chains(z0: torch.Tensor, n_chains: int, s: Settings):
 
 
 def _run_hmc(fz, init, s: Settings, n_chains: int, free_mask,
-             ckpt_path: str | None, on_window=None):
+             ckpt_path: str | None, on_window=None, sharded=None):
     """HMC through the host-chunked driver, in chunks of a quarter of the
     draws (at most 100): checkpointed to ckpt_path (--resume) and / or
     reporting each chunk to on_window (--metrics) when they are given.
-    Returns (zs [N, C, P], info)."""
-    from base_tpu_torch.inference.driver import make_hmc_chunked_runner
+    `sharded` (model, transform, mesh) runs it over the mesh
+    (parallel.run) instead of on the density fz.  Returns (zs [N, C, P],
+    info)."""
+    from base_tpu_torch.inference.driver import (DriverConfig,
+                                                 make_hmc_chunked_runner)
     from base_tpu_torch.inference.hmc import HMCConfig
 
     n_draws = s.mcmc.runIter // n_chains
@@ -368,13 +400,23 @@ def _run_hmc(fz, init, s: Settings, n_chains: int, free_mask,
         dense_mass=s.mcmc.denseMass,
         free_mask=free_mask,
     )
+    chunk = max(min(100, n_draws // 4), 1)
+    gen = _gen(init.device, s.mcmc.seed, 1)
+    if sharded is not None:
+        from base_tpu_torch.parallel import run as prun
+
+        model, tr, mesh = sharded
+        return prun.run_hmc_sharded_checkpointed(
+            model, tr, init, gen, cfg, mesh,
+            DriverConfig(checkpoint_path=ckpt_path, chunk_size=chunk,
+                         on_window=on_window))
     runner = make_hmc_chunked_runner(
-        fz, cfg, max(min(100, n_draws // 4), 1),
-        checkpoint_path=ckpt_path, on_window=on_window)
-    return runner(init, _gen(init.device, s.mcmc.seed, 1))
+        fz, cfg, chunk, checkpoint_path=ckpt_path, on_window=on_window)
+    return runner(init, gen)
 
 
-def _run_nuts(fz, init, s: Settings, n_chains: int, free_mask):
+def _run_nuts(fz, init, s: Settings, n_chains: int, free_mask,
+              sharded=None):
     from base_tpu_torch.inference.nuts import (NUTSConfig,
                                                make_nuts_chunked_runner)
 
@@ -383,18 +425,32 @@ def _run_nuts(fz, init, s: Settings, n_chains: int, free_mask):
         thin=s.mcmc.thin, target_accept=s.mcmc.targetAccept,
         dense_mass=s.mcmc.denseMass, free_mask=free_mask,
     )
-    return make_nuts_chunked_runner(fz, ncfg)(
-        init, _gen(init.device, s.mcmc.seed, 1))
+    gen = _gen(init.device, s.mcmc.seed, 1)
+    if sharded is not None:
+        from base_tpu_torch.parallel import run as prun
+
+        model, tr, mesh = sharded
+        return prun.run_nuts_sharded(model, tr, init, gen, ncfg, mesh)
+    return make_nuts_chunked_runner(fz, ncfg)(init, gen)
 
 
-def _run_smc(fz, z0: torch.Tensor, s: Settings):
+def _run_smc(fz, z0: torch.Tensor, s: Settings, sharded=None):
     """Tempered SMC from N(z0, 0.5^2): 4 replicates folded into the
-    particle axis, with a repeat-run evidence SE.  Returns (particles
-    [N, P], info)."""
+    particle axis, with a repeat-run evidence SE; sharded, one run whose
+    max(runIter, 256) particles split over the chain shards, as base_tpu
+    runs it.  Returns (particles [N, P], info)."""
     from base_tpu_torch.inference.smc import SMCConfig, make_smc_chunked_runner
 
     n_part = max(s.mcmc.runIter, 256)
     sd0 = 0.5
+    gen = _gen(z0.device, s.mcmc.seed, 2)
+    if sharded is not None:
+        from base_tpu_torch.parallel import run as prun
+
+        model, tr, mesh = sharded
+        scfg = SMCConfig(n_particles=max(n_part // mesh.n_chain_shards, 64))
+        return prun.run_smc_sharded(model, tr, z0, gen, scfg, mesh,
+                                    q0_sd=sd0)
 
     def log_q0(z):
         return (-0.5 * ((z - z0) / sd0) ** 2 - math.log(sd0)
@@ -406,24 +462,32 @@ def _run_smc(fz, z0: torch.Tensor, s: Settings):
 
     n_rep = 4
     scfg = SMCConfig(n_particles=max(n_part // n_rep, 64))
-    return make_smc_chunked_runner(fz, sample_q0, log_q0, scfg, n_rep=n_rep)(
-        _gen(z0.device, s.mcmc.seed, 2))
+    return make_smc_chunked_runner(fz, sample_q0, log_q0, scfg,
+                                   n_rep=n_rep)(gen)
 
 
-def _run_vi(fz, z0: torch.Tensor, s: Settings):
-    """Full-rank ADVI, then max(runIter, 256) posterior draws.  Returns
-    (draws [N, P], VIResult)."""
+def _run_vi(fz, z0: torch.Tensor, s: Settings, sharded=None):
+    """Full-rank ADVI (sharded: run_vi_sharded), then max(runIter, 256)
+    posterior draws.  Returns (draws [N, P], VIResult)."""
     from base_tpu_torch.inference.vi import VIConfig, run_vi, sample_posterior
 
     vcfg = VIConfig(n_steps=max(s.mcmc.warmup * 3, 600), full_rank=True)
-    res = run_vi(fz, z0, _gen(z0.device, s.mcmc.seed, 3), vcfg)
+    gen = _gen(z0.device, s.mcmc.seed, 3)
+    if sharded is not None:
+        from base_tpu_torch.parallel import run as prun
+
+        model, tr, mesh = sharded
+        res = prun.run_vi_sharded(model, tr, z0, gen, vcfg, mesh)
+    else:
+        res = run_vi(fz, z0, gen, vcfg)
     n_draw = max(s.mcmc.runIter, 256)
     return sample_posterior(res, _gen(z0.device, s.mcmc.seed, 4), n_draw), res
 
 
 def _run_mh(f, f_burn, start: np.ndarray, step0: np.ndarray, s: Settings,
-            n_chains: int, device: torch.device):
-    """Reference-parity 3-stage adaptive MH on every chain at once.
+            n_chains: int, device: torch.device, sharded=None):
+    """Reference-parity 3-stage adaptive MH on every chain at once;
+    `sharded` (model, burn model or None, mesh) runs it over the mesh.
     Returns (xs [N, C, P], lps [N, C], accept)."""
     from base_tpu_torch.inference.mh import MHConfig, run_adaptive_mh
 
@@ -432,12 +496,32 @@ def _run_mh(f, f_burn, start: np.ndarray, step0: np.ndarray, s: Settings,
         n_main=s.mcmc.runIter // n_chains, thin=s.mcmc.thin,
     )
     init = torch.as_tensor(start, device=device)[None, :].repeat(n_chains, 1)
-    xs, info = run_adaptive_mh(
-        f, init, _gen(device, s.mcmc.seed),
-        torch.as_tensor(step0, device=device), cfg,
-        logpost_burnin_fn=f_burn,
-    )
+    gen = _gen(device, s.mcmc.seed)
+    step = torch.as_tensor(step0, device=device)
+    if sharded is not None:
+        from base_tpu_torch.parallel import run as prun
+
+        model, burn_model, mesh = sharded
+        xs, info = prun.run_mh_sharded(model, init, gen, step, cfg, mesh,
+                                       burn_model=burn_model)
+        return xs, info["logposts"], float(info["accept_rate"])
+    xs, info = run_adaptive_mh(f, init, gen, step, cfg,
+                               logpost_burnin_fn=f_burn)
     return xs, info["logposts"], float(info["accept_rate"].mean())
+
+
+def _density_counts(counters, mesh) -> tuple[int, int]:
+    """(density calls, rows evaluated): the counted densities', or in a
+    sharded run this rank's calls and the rows of every chain shard
+    (parallel.run's counters; collective over the chain group)."""
+    if mesh is None:
+        return sum(c.calls for c in counters), sum(c.rows for c in counters)
+    from base_tpu_torch.parallel import comm
+    from base_tpu_torch.parallel import run as prun
+
+    rows = comm.psum(torch.tensor(float(prun.density_rows)),
+                     mesh.chain_group)
+    return prun.density_calls, int(rows)
 
 
 def cmd_single_pop(args) -> None:
@@ -446,37 +530,46 @@ def cmd_single_pop(args) -> None:
 
     s = _settings(args)
     dev = _device(args)
+    mesh = _mesh(args)
+    lead = _lead(args)
     table = photio.read_phot(s.files.photFile)
     model = _build_model_from_phot(s, table, dev)
     start = s.cluster.start_vector()
     n_chains = s.mcmc.chains
-    _announce_draws(s, n_chains)
+    if lead:
+        _announce_draws(s, n_chains)
     resume = bool(getattr(args, "resume", False))
     ckpt_path = s.files.outputFileBase + ".ckpt" if resume else None
-    if resume and s.mcmc.sampler != "hmc":
+    if resume and s.mcmc.sampler != "hmc" and lead:
         print(
             f"single-pop: --resume is checkpointed-HMC only; "
             f"sampler={s.mcmc.sampler} runs without checkpoints",
             file=sys.stderr,
         )
     mlog = None
-    if args.metrics:
+    if args.metrics and lead:
         from base_tpu_torch.utils.metrics import MetricsLogger
 
         mlog = MetricsLogger(args.metrics)
+    if mesh is not None:
+        from base_tpu_torch.parallel import run as prun
+
+        prun.reset_counts()
+    counters = []
     t_sample0 = time.perf_counter()
 
     if s.mcmc.sampler in ("hmc", "nuts", "smc", "vi"):
         tr = post.default_transform(model)
-        fz = _Counted(post.make_logpost_z_fn(model, tr))
-        counters = [fz]
+        fz = None
+        if mesh is None:
+            fz = _Counted(post.make_logpost_z_fn(model, tr))
+            counters.append(fz)
         xs, lps, accept = _sample_z(
             fz, tr, start, s, n_chains, post.free_mask(model), dev,
             ckpt_path, (_window_logger(mlog, C.PARAM_NAMES)
-                        if mlog is not None else None))
+                        if args.metrics else None),
+            sharded=None if mesh is None else (model, tr, mesh))
     else:
-        f = _Counted(post.make_logpost_fn(model))
-        counters = [f]
         # Reference-style per-param step scales, masked by the shared
         # sampled-parameter helper so MH frees exactly what HMC/NUTS do
         # (incl. the quadratic IFMR coefficient under ifmr=quadratic).
@@ -486,17 +579,27 @@ def cmd_single_pop(args) -> None:
         ) * np.asarray(post.free_mask(model), np.float32)
         # useDuringBurnIn: stages 1-2 target only the flagged stars
         # (reference C3/C14 semantics); stage 3 uses everything.
-        f_burn = None
+        burn_model = None
         if (table.use_dbi == 0).any():
             burn_model = _build_model_from_phot(
                 s, table.select(table.use_dbi != 0), dev
             )
-            f_burn = _Counted(post.make_logpost_fn(burn_model))
-            counters.append(f_burn)
-        xs, lps, accept = _run_mh(f, f_burn, start, step0, s, n_chains, dev)
+        if mesh is None:
+            f = _Counted(post.make_logpost_fn(model))
+            f_burn = (None if burn_model is None
+                      else _Counted(post.make_logpost_fn(burn_model)))
+            counters += [c for c in (f, f_burn) if c is not None]
+            xs, lps, accept = _run_mh(f, f_burn, start, step0, s, n_chains,
+                                      dev)
+        else:
+            xs, lps, accept = _run_mh(None, None, start, step0, s, n_chains,
+                                      dev, sharded=(model, burn_model, mesh))
 
     xs_np, lps_np = _np(xs), _np(lps).reshape(xs.shape[0], -1)
     wall = time.perf_counter() - t_sample0
+    calls, rows = _density_counts(counters, mesh)
+    if not lead:
+        return
     out = s.files.outputFileBase + ".res"
     resio.write_res(out, xs_np, lps_np)
     if s.files.store == "sqlite":
@@ -515,15 +618,20 @@ def cmd_single_pop(args) -> None:
         # counted at the density, not estimated from l_max.
         mlog.throughput(
             "single-pop", n_samples=xs.shape[0] * xs.shape[1],
-            n_evals=sum(c.rows for c in counters), seconds=wall,
+            n_evals=rows, seconds=wall,
             sampler=s.mcmc.sampler, accept=accept,
-            density_calls=sum(c.calls for c in counters),
+            density_calls=calls,
             ess_age=float(summ["ess"][0]), rhat_age=float(summ["rhat"][0]),
             stars=int(table.n_stars), chains=n_chains, device=str(dev),
+            **({} if mesh is None else dict(
+                mesh=f"{mesh.n_chain_shards},{mesh.n_star_shards}",
+                backend=mesh.backend)),
         )
         mlog.close()
     print(f"single-pop ({s.mcmc.sampler}): {xs.shape[0]}x{xs.shape[1]} "
           f"samples -> {out}")
+    if mesh is not None:
+        print(f"  {mesh.describe()}")
     print(f"  accept={accept:.3f}")
     for i, name in enumerate(C.PARAM_NAMES[:6]):
         print(
@@ -534,36 +642,47 @@ def cmd_single_pop(args) -> None:
 
 def _sample_z(fz, tr, start: np.ndarray, s: Settings, n_chains: int,
               free_mask, device: torch.device, ckpt_path: str | None = None,
-              on_window=None):
+              on_window=None, sharded=None):
     """The gradient-based samplers on the density fz of unconstrained z,
-    through the transform `tr`: mcmc.sampler nuts, smc, vi, or else hmc.
-    Returns (xs [N, C, P] constrained, lps [N, C], accept); smc and vi
-    give their particles / draws as N rows of one chain, and accept is
-    the move acceptance (smc) or the final ELBO (vi)."""
+    through the transform `tr`: mcmc.sampler nuts, smc, vi, or else hmc;
+    `sharded` (model, tr, mesh) runs them over the mesh instead (fz
+    unused).  Returns (xs [N, C, P] constrained, lps [N, C], accept); smc
+    and vi give their particles / draws as N rows of one chain, and
+    accept is the move acceptance (smc) or the final ELBO (vi)."""
     z0 = tr.inverse(torch.as_tensor(start, device=device))
+    lead = sharded is None or sharded[2].rank == 0
     if s.mcmc.sampler in ("smc", "vi"):
         if s.mcmc.sampler == "smc":
-            z_part, info = _run_smc(fz, z0, s)
-            accept = info["accept"]
-            print(
-                f"  smc: log_evidence={info['log_evidence']:.2f} +- "
-                f"{info['log_evidence_se']:.2f} "
-                f"stages={int(info['n_stages'])} move_accept={accept:.2f} "
-                f"move_scale={info['move_scale']:.3f}"
-            )
+            z_part, info = _run_smc(fz, z0, s, sharded)
+            accept = float(info["accept"])
+            se = (f" +- {float(info['log_evidence_se']):.2f}"
+                  if "log_evidence_se" in info else "")
+            if lead:
+                print(
+                    f"  smc: log_evidence={float(info['log_evidence']):.2f}"
+                    f"{se} stages={int(info['n_stages'])} "
+                    f"move_accept={accept:.2f} "
+                    f"move_scale={float(info['move_scale']):.3f}"
+                )
         else:
-            z_part, res = _run_vi(fz, z0, s)
+            z_part, res = _run_vi(fz, z0, s, sharded)
             accept = float(res.final_elbo)
-            print(f"  vi: final ELBO={accept:.2f}")
-        with torch.no_grad():
-            lps = fz(z_part)
+            if lead:
+                print(f"  vi: final ELBO={accept:.2f}")
+        if sharded is None:
+            with torch.no_grad():
+                lps = fz(z_part)
+        else:
+            from base_tpu_torch.parallel import run as prun
+
+            lps = prun.logpost_at(*sharded, z_part)
         return tr.forward(z_part)[:, None, :], lps[:, None], accept
     init = _start_chains(z0, n_chains, s)
     if s.mcmc.sampler == "nuts":
-        zs, info = _run_nuts(fz, init, s, n_chains, free_mask)
+        zs, info = _run_nuts(fz, init, s, n_chains, free_mask, sharded)
     else:
         zs, info = _run_hmc(fz, init, s, n_chains, free_mask, ckpt_path,
-                            on_window)
+                            on_window, sharded)
     return tr.forward(zs), info["logposts"], float(info["accept_prob"])
 
 
@@ -723,13 +842,15 @@ def cmd_multi_pop(args) -> None:
 
     s = _settings(args)
     dev = _device(args)
+    mesh = _mesh(args)
     table = photio.read_phot(s.files.photFile)
     model, start, step0 = _build_multi_pop_model(s, table, dev)
     n_chains = s.mcmc.chains
-    _announce_draws(s, n_chains)
+    if _lead(args):
+        _announce_draws(s, n_chains)
     resume = bool(getattr(args, "resume", False))
     ckpt_path = s.files.outputFileBase + ".mp.ckpt" if resume else None
-    if resume and s.mcmc.sampler != "hmc":
+    if resume and s.mcmc.sampler != "hmc" and _lead(args):
         print(
             f"multi-pop: --resume is checkpointed-HMC only; "
             f"sampler={s.mcmc.sampler} runs without checkpoints",
@@ -737,14 +858,21 @@ def cmd_multi_pop(args) -> None:
         )
 
     if s.mcmc.sampler == "mh":
-        f = _Counted(mp.make_logpost_fn(model))
-        xs, lps, accept = _run_mh(f, None, start, step0, s, n_chains, dev)
+        if mesh is None:
+            xs, lps, accept = _run_mh(mp.make_logpost_fn(model), None, start,
+                                      step0, s, n_chains, dev)
+        else:
+            xs, lps, accept = _run_mh(None, None, start, step0, s, n_chains,
+                                      dev, sharded=(model, None, mesh))
     else:
         tr = mp.ordered_transform(model)
-        fz = _Counted(mp.make_logpost_z_fn(model, tr))
-        xs, lps, accept = _sample_z(fz, tr, start, s, n_chains,
-                                    mp.free_mask(model), dev, ckpt_path)
+        fz = None if mesh is not None else mp.make_logpost_z_fn(model, tr)
+        xs, lps, accept = _sample_z(
+            fz, tr, start, s, n_chains, mp.free_mask(model), dev, ckpt_path,
+            sharded=None if mesh is None else (model, tr, mesh))
     xs_np, lps_np = _np(xs), _np(lps).reshape(xs.shape[0], -1)
+    if not _lead(args):
+        return
 
     out = s.files.outputFileBase + ".mp.res"
     cols = list(mp.MP_PARAM_NAMES) + ["logPost", "chain"]
@@ -894,18 +1022,101 @@ def main(argv=None) -> None:
             p.add_argument("--dst", default=None,
                            help="output directory for packed .npz grids")
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(
-            f"{args.tool}: --mesh is not ported yet (it waits for "
-            f"base_tpu_torch's parallel layer); run without it"
-        )
+    shape = _parse_mesh(args.mesh) if args.tool in MESH_TOOLS else None
+    if shape is None:
+        _run_tool(args)
+    else:
+        _run_sharded(args, shape)
+
+
+def _run_tool(args) -> None:
     from base_tpu_torch.utils.metrics import (debug_guards, named_scope,
                                               profile_trace)
 
-    # The tool's whole run is one range named after it in the trace.
-    with profile_trace(args.profile), named_scope(args.tool), \
-            debug_guards(args.debug):
+    # The tool's whole run is one range named after it in the trace (rank
+    # 0's, in a sharded run).
+    with profile_trace(args.profile if _lead(args) else None), \
+            named_scope(args.tool), debug_guards(args.debug):
         TOOLS[args.tool](args)
+
+
+# The tools that take --mesh; the others ignore it, as base_tpu's do.
+MESH_TOOLS = ("single-pop", "multi-pop")
+
+
+def _parse_mesh(spec: str | None):
+    """--mesh C,S -> (C, S) (C alone: S = 1); None when no mesh was
+    requested."""
+    if not spec:
+        return None
+    try:
+        parts = [int(x) for x in spec.split(",")]
+    except ValueError:
+        parts = []
+    if len(parts) == 1:
+        parts.append(1)
+    if len(parts) != 2 or min(parts) < 1:
+        raise SystemExit(f"--mesh wants C,S (got {spec!r})")
+    return tuple(parts)
+
+
+def _rank_main(rank: int, args, shape: tuple, init_method: str) -> None:
+    """One rank of a sharded run: join the world, build the mesh, run the
+    tool, leave.  (torch.multiprocessing's entry point; rank first.)"""
+    from base_tpu_torch.parallel import distributed
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    if init_method == "env://":       # torchrun's world
+        distributed.initialize(args.device)
+    else:
+        world = shape[0] * shape[1]
+        distributed.initialize(args.device, init_method=init_method,
+                               world_size=world, rank=rank, local_rank=rank,
+                               local_world_size=world)
+    try:
+        args.mesh_ctx = make_mesh(*shape)
+        _run_tool(args)
+    finally:
+        distributed.shutdown()
+
+
+def _run_sharded(args, shape: tuple) -> None:
+    """The tool over a C x S mesh: in the world torchrun started (its
+    WORLD_SIZE must be C * S), or in C * S ranks started here."""
+    import os
+
+    world = shape[0] * shape[1]
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(
+                f"{args.tool}: --mesh {shape[0]},{shape[1]} needs "
+                f"{world} ranks; torchrun started "
+                f"{os.environ['WORLD_SIZE']}")
+        _rank_main(int(os.environ["RANK"]), args, shape, "env://")
+        return
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    if _device(args).type == "cuda":
+        # Build the kernels once, before the ranks start.
+        from base_tpu_torch.ops import build
+
+        build.build()
+    store = tempfile.mkdtemp(prefix="btt_mesh_")
+    init_method = f"file://{os.path.join(store, 'store')}"
+    try:
+        if world == 1:
+            _rank_main(0, args, shape, init_method)
+        else:
+            tmp.start_processes(_rank_main, args=(args, shape, init_method),
+                                nprocs=world, start_method="spawn")
+    except tmp.ProcessException as e:
+        raise SystemExit(f"{args.tool}: rank {e.error_index} of the "
+                         f"{shape[0]}x{shape[1]} mesh failed: {e}") from None
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -67,7 +67,7 @@ within 4 sd of the truth, beside phase 4's HMC.
 Config 2 (BASELINE.json config 2, benchmarks/field_membership_tpu.py's
 settings, `run_config2`) is field-star membership: 200 members, every one a
 binary, plus 40 uniform-CMD field stars at membership priors 0.9 / 0.3,
-upsample 4.  Phase 10a: chunked HMC on 32 chains (32 + 32 draws), launches
+upsample 4.  Phase 10a: chunked HMC on 32 chains (32 + 16 draws), launches
 equal to the density calls; 10b: sample_ms_masses on every 16th draw, the
 membership posterior of 8 draws against the CPU plain path, and the
 members-vs-field AUC (>= 0.95).
@@ -87,14 +87,14 @@ times beside their bounds at both shapes.
 Phase 12 (`run_cli`) drives the port's CLI, `base_tpu_torch.tools.main`,
 in-process (so the wrappers' launch counters see it) at the widths of
 conf/base9.yaml: 100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, upsample
-4, 64 chains, dense metric, lMax 48, cut only in depth (32 + 32 draws a
+4, 64 chains, dense metric, lMax 48, cut only in depth (16 + 16 draws a
 chain).  12a: simulate -> scatter; the model the CLI builds from that
 .phot (n_q 16, upsample 4, 4 WDs) at its 64 chains, each kernel against
 its plain version (kernels 3-4 on the MS and the WD tables), and log_post
 + gradient on 16 of those chains against the CPU plain path; single-pop
 --metrics, every kernel's launches held to the density calls the CLI
 counted (kernels 3-4 once per segment table: twice with the simulated
-WDs), 2048 finite .res rows, the age within 4 sd of the truth; 12b:
+WDs), 1024 finite .res rows, the age within 4 sd of the truth; 12b:
 sample-mass; 12c: make-cmd on the card and through `python -m
 base_tpu_torch.tools.main make-cmd --device cpu` in a subprocess, within
 CMD_TOL; 12d: run_hmc_checkpointed on the CLI's model
@@ -110,7 +110,7 @@ convert-models --src --dst` packs them (subprocess); a table is read back
 through io.native (the library must load: no numpy fallback) and rows go
 out through its AsyncWriter.  13b: simulate -> scatter -> single-pop
 --metrics at conf/base9.yaml's widths on those grids with B = 29, cut to
-32 + 32 draws a chain; the CLI's model checked as in 12a (kernels 1-4
+16 + 16 draws a chain; the CLI's model checked as in 12a (kernels 1-4
 against plain at B = 29 on its 64 chains, density against the CPU on 16);
 every kernel's launches held to the density calls (kernels 3m/4m never),
 the age within 4 sd of the truth; kernels 1-4 timed at B = 29 beside their bounds.
@@ -122,6 +122,28 @@ their place as a control that must fail the same gate; its own path
 (value + gradient calls, launches counted over it alone), and the device
 ms of both forms at both widths beside their bounds.
 
+Phase 14 (`run_parallel`) is the parallel layer, base_tpu_torch.parallel.
+14a: a world of one in this process (NCCL, by the backend rule), mesh 1
+x 1 on cuda:0: local_logpost_fn's value and gradient on phase 4's model
+and chains equal the unsharded card density bit for bit, its kernels
+launched once a call; run_hmc_sharded (phase 4's settings, l_max 8, 32 +
+32) equals run_hmc given the chain-shard-0 generator, bit for bit, with
+every kernel's launches equal to the density calls.  14c: simulate ->
+scatter -> `single-pop --mesh 1,2 --metrics` at phase 12's settings (the
+CLI spawns two ranks on the card), 1024 finite rows, the age within 4 sd
+of the truth.  14b: two ranks spawned on the one card (gloo: they share
+it), at meshes (1, 2) and (2, 1): the sharded density and gradient
+against the unsharded card density (SHARD_VALUE_RTOL, and
+SHARD_GRAD_RTOL / SHARD_GRAD_ATOL: tests/test_parallel.py's bounds) on
+config 1 with 100 stars and with 99 (padded to 100), the value at config
+5's 10 000 stars on 1024 rows and the gradient on 8; sharded HMC on
+config 1 (each rank's launches equal to its density calls, every chain
+moving, the recorded logposts the unsharded density at the draws, the
+age within 4 sd, the two ranks' draws bit-identical); and at (1, 2) the
+CLI model's sharded checkpointed HMC interrupted after chunk 1 and
+resumed, bit for bit against an uninterrupted run.  Each run prints its
+backend, world size, wall and density calls per second.
+
 Every profiler pass (phases 6, 7e and 8e) is padded with idle host time
 (PROFILE_PAD_S) and must hold the records of at least 99% of the launches
 that the kernel wrappers counted in it.
@@ -132,7 +154,8 @@ that the per-kernel JSON (config 3's launches and WD-shape numbers,
 config 4's launches and times at its shapes, the launches of phases 9, 10,
 11, 12 (`launches_cli`) and 13 (`launches_wide`), the times and bounds at
 config 5's SMC and VI shapes and at B = 29 (`b29`), as extra fields;
-kernels 3m and 4m have rows of their own), before that the `wide` JSON of
+kernels 3m and 4m have rows of their own; `launches_parallel`: phase
+14's HMC), before that the `parallel` JSON of phase 14, the `wide` JSON of
 phase 13, and before that the `cli` JSON of phase 12 (each tool's wall,
 single-pop's samples/s, evals/s, density calls and ESS/s of the age).
 Without a CUDA device it exits non-zero before printing any result.  It
@@ -1149,9 +1172,10 @@ PRIOR_MEAN4 = np.concatenate([TRUTH, [0.25, 0.30, 0.5]]).astype(np.float32)
 PRIOR_SIGMA4 = np.concatenate([PRIOR_SIGMA, [-1, -1, -1]]).astype(np.float32)
 N_CHAINS4, N_STARS4, UPSAMPLE4 = 32, 400, 4
 # A short run (the benchmark takes 256 + 1024 draws; halved from 128 + 64
-# when phases 9-11 joined, and the warmup halved again when phase 12 did:
-# the VI warm start hands HMC its draws and metric).
-N_WARMUP4, N_SAMPLES4 = 32, 32
+# when phases 9-11 joined, the warmup halved again when phase 12 did (the
+# VI warm start hands HMC its draws and metric), and the draws when phase
+# 14 did).
+N_WARMUP4, N_SAMPLES4 = 32, 16
 # Reference-parity MH (bench_baseline.py:229-231): 64 chains.
 N_CHAINS_MH4 = 64
 STEP_MH4 = np.zeros(12, np.float32)
@@ -1505,11 +1529,11 @@ def run_nuts_config1(model, hmc_res: dict) -> dict:
 # at membership priors 0.9 / 0.3, the field density normalised over the box
 # they were drawn from, upsample 4; 32 chains of HMC.  A short run (the
 # benchmark takes 512 + 2048 draws), cut from 64 + 64 to 32 + 32 when phase
-# 12 joined: the whole script took 770 s on one H100 machine and 1075 s on
+# 12 joined (the whole script took 770 s on one H100 machine and 1075 s on
 # another, and a machine 1.5x slower still would leave it little of its
-# 1200 s limit.
+# 1200 s limit), and to 32 + 16 when phase 14 did.
 N_MEMBERS2, N_FIELD2, N_CHAINS2 = 200, 40, 32
-N_WARMUP2, N_SAMPLES2 = 32, 32
+N_WARMUP2, N_SAMPLES2 = 32, 16
 # p_member, card vs CPU plain path.  Both evaluate the plain marginal in
 # float32, whose floor reaches ~1e-2 where chi2 cancels at the start of long
 # segments (the conditionals' un-upsampled table; 2^-7 to 2^-3 between an
@@ -1921,12 +1945,13 @@ def run_config5(dev) -> dict:
 # in-process so that the wrappers' launch counters see it, at the widths of
 # conf/base9.yaml (100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, the
 # default upsample 4, 64 chains, dense metric, lMax 48).  Only the depth is
-# cut: 32 warmup transitions and 32 draws a chain, which leaves phase 13
-# its time within the script's limit.  conf/base9.yaml says
+# cut: 16 warmup transitions and 16 draws a chain (32 + 32 until phase 14
+# joined), which leaves phases 13 and 14 their time within the script's
+# limit.  conf/base9.yaml says
 # usePallas: false, which the card refuses; settings read a later `--set
 # mcmc.usePallas=auto` over that YAML boolean as false (as base_tpu's do),
 # so the kernels are asked for with true.
-CLI_SETS = ("mcmc.warmup=32", "mcmc.runIter=2048", "mcmc.usePallas=true")
+CLI_SETS = ("mcmc.warmup=16", "mcmc.runIter=1024", "mcmc.usePallas=true")
 # The CLI model's density check against the CPU (12a, 13b) runs on 16 of
 # its 64 chains: the CPU plain density at upsample 4 holds [C, S, T, B]
 # tensors of 0.9 GB at 16 chains and B = 29.  Its kernels are checked on
@@ -2058,7 +2083,7 @@ def run_cli(dev, hmc_res: dict) -> dict:
     """Phase 12: (a) simulate -> scatter; the CLI's model from that .phot
     checked (check_cli_model); single-pop --metrics, each
     kernel's launches over single-pop equal to the density calls the CLI
-    counted (kernels 3-4 once per segment table: twice with WDs), 2048
+    counted (kernels 3-4 once per segment table: twice with WDs), 1024
     finite .res rows, the age within 4 sd of the simulated truth, split
     R-hat of the age beside phase 4's; (b) sample-mass; (c) make-cmd on
     the card and, as a subprocess through `python -m`, on the CPU, within
@@ -2188,13 +2213,14 @@ def run_cli(dev, hmc_res: dict) -> dict:
 # bands), packs them with `python -m base_tpu_torch.tools.main
 # convert-models`, and reads a table back through the native IO runtime.
 # 13b runs the CLI at conf/base9.yaml's widths on those grids with B = 29,
-# cut in depth: 32 warmup transitions and 32 draws a chain (phase 12's 64
-# + 64 took 125-276 s at B = 8 by host, and is 32 + 32 now); its model's
+# cut in depth: 16 warmup transitions and 16 draws a chain, as phase 12
+# (64 + 64 took 125-276 s at B = 8 by host; 32 + 32 until phase 14
+# joined); its model's
 # density is checked against the CPU on N_CHAINS_CPU_CHECK of its chains.
 # 13c drives the matmul form
 # (kernels 3m and 4m) at the bench shapes (B = 8) and on 13b's MS table (B
 # = 29).
-WIDE_SETS = ("mcmc.warmup=32", "mcmc.runIter=2048", "mcmc.usePallas=true")
+WIDE_SETS = ("mcmc.warmup=16", "mcmc.runIter=1024", "mcmc.usePallas=true")
 # 13c: the seeds of the chain points at which kernels 3m and 4m are
 # checked at each width (seed 1: the points the phase times), the value +
 # gradient calls of fused_log_marginals(..., matmul=True) that make up the
@@ -2563,6 +2589,380 @@ def run_wide(dev, bench) -> dict:
     return res
 
 
+# Phase 14: the parallel layer (base_tpu_torch.parallel) on the card.
+# 14a: a world of one in this process (NCCL by the backend rule), mesh 1 x
+# 1 on cuda:0: local_logpost_fn on phase 4's model and chains against the
+# unsharded card density, bit for bit, and run_hmc_sharded against run_hmc
+# given the chain-shard-0 generator, bit for bit.  14c: the CLI's
+# `single-pop --mesh 1,2` at phase 12's settings (two ranks it spawns on
+# the card).  14b: a world of two ranks spawned here on the one card (gloo:
+# two ranks share it), at meshes (1, 2) and (2, 1): the star-sharded
+# density against the unsharded card density on config 1 (100 stars, and
+# 99 stars, which pad to 100), and at config 5's 10 000 stars; sharded
+# HMC on config 1; and the CLI model's sharded checkpointed HMC
+# interrupted and resumed.  Its HMC takes phase 4's settings with l_max 8
+# (phase 4's 48 would take ~6x the time; the checks do not depend on it).
+MESHES14 = ((1, 2), (2, 1))
+N_WARMUP14, N_SAMPLES14, L_MAX14 = 32, 32, 8
+# tests/test_parallel.py:106-111: the star sum reassociated across shards.
+SHARD_VALUE_RTOL = 1e-5
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 5e-3, 2e-3   # atol x the largest |grad|
+N_ROWS5_GRAD = 8
+WORLD14_TIMEOUT_S = 300.0
+
+
+def hmc14_cfg():
+    from base_tpu_torch.inference.hmc import HMCConfig
+
+    return HMCConfig(n_warmup=N_WARMUP14, n_samples=N_SAMPLES14,
+                     l_max=L_MAX14, dense_mass=True, free_mask=FREE,
+                     jitter_mode="step")
+
+
+def hmc14_init(model):
+    """Phase 4's start: the truth jittered by 0.02 sd on every chain."""
+    tr = transform(model)
+    z0 = tr.inverse(torch.as_tensor(TRUTH, device=model.grid.device))
+    return z0 + 0.02 * torch.randn(
+        N_CHAINS, z0.shape[0],
+        generator=torch.Generator().manual_seed(2)).to(z0.device)
+
+
+def sharded_density_errs(model, mesh, z, grad: bool = True) -> dict:
+    """This rank's star-sharded density (and gradient) at z against the
+    unsharded card density: the value's largest relative error, and the
+    gradient's largest error over tests/test_parallel.py's bound,
+    |d| / (rtol |g| + atol max|g|) with max|g| per chain (<= 1 passes)."""
+    from base_tpu_torch.inference.hmc import value_and_grad
+    from base_tpu_torch.parallel import run as prun
+
+    tr = transform(model)
+    fz = prun._logpost_z(model, tr, mesh)
+    if grad:
+        v, g = value_and_grad(fz)(z)
+        want_v, want_g = density_fn(model)(z)
+    else:
+        with torch.no_grad():
+            v, want_v = fz(z), logpost_z_fn(model)(z)
+    rel = float(((v - want_v).abs() / want_v.abs().clamp_min(1.0)).max())
+    res = dict(value_rel_err=rel, rows=int(z.shape[0]))
+    if grad:
+        bound = (SHARD_GRAD_RTOL * want_g.abs() + SHARD_GRAD_ATOL
+                 * want_g.abs().amax(1, keepdim=True)).clamp_min(1e-30)
+        res["grad_err_over_bound"] = float(((g - want_g).abs()
+                                            / bound).max())
+        res["grad_scaled_err"] = float(
+            ((g - want_g).abs().amax(1)
+             / want_g.abs().amax(1).clamp_min(1e-30)).max())
+    ok = (torch.isfinite(v).all() and rel <= SHARD_VALUE_RTOL
+          and res.get("grad_err_over_bound", 0.0) <= 1.0)
+    if not ok:
+        raise AssertionError(f"sharded density off the unsharded card "
+                             f"density: {res}")
+    return res
+
+
+def sharded_hmc(model, mesh, label: str) -> tuple[dict, torch.Tensor]:
+    """run_hmc_sharded (hmc14_cfg) on config 1 over the mesh: this rank's
+    launches equal to its density calls, every chain moving, the recorded
+    logposts the unsharded density at the recorded draws, the age within
+    4 sd of the truth; `staged_collectives`: those gloo ran through the
+    host (parallel.comm's rule for CUDA tensors).  Returns (results,
+    draws)."""
+    from base_tpu_torch.parallel import comm
+    from base_tpu_torch.parallel import run as prun
+
+    tr = transform(model)
+    dev = model.grid.device
+    prun.reset_counts()
+    comm.staged = 0
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zs, info = prun.run_hmc_sharded(
+        model, tr, hmc14_init(model),
+        torch.Generator(device=dev).manual_seed(4), hmc14_cfg(), mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = prun.density_calls
+    counts = launch_counts()
+    check_one_launch_per_call(label, counts, calls)
+    with torch.no_grad():
+        lp = logpost_z_fn(model)(zs.reshape(-1, zs.shape[-1])).view(
+            zs.shape[:2])
+    lp_err = float(((info["logposts"] - lp).abs()
+                    / lp.abs().clamp_min(1.0)).max())
+    xs = tr.forward(zs)
+    age = xs[..., 0]
+    moved = float((zs.amax(0) - zs.amin(0)).amax(-1).min())
+    res = dict(wall_s=wall, density_calls=calls, calls_per_s=calls / wall,
+               staged_collectives=comm.staged,
+               launches=counts, accept=float(info["accept_prob"]),
+               step_size=float(info["step_size"]), logpost_rel_err=lp_err,
+               least_chain_range=moved,
+               age=dict(mean=float(age.mean()), sd=float(age.std()),
+                        truth=float(TRUTH[0])))
+    if not (torch.isfinite(zs).all() and moved > 1e-4
+            and lp_err <= SHARD_VALUE_RTOL
+            and abs(res["age"]["mean"] - TRUTH[0]) < 4 * res["age"]["sd"]):
+        raise AssertionError(f"{label}: sharded HMC {res}")
+    return res, zs
+
+
+def sharded_resume(s, phot: str, ckpt: str, mesh) -> dict:
+    """12d over the mesh: the CLI's model, run_hmc_sharded_checkpointed
+    (16 chains, 32 + 32, chunk 8, l_max 4) interrupted after chunk 1 (rank
+    0 wrote the whole run) and resumed on every rank, against an
+    uninterrupted run, bit for bit."""
+    from base_tpu_torch.inference import driver
+    from base_tpu_torch.inference.hmc import HMCConfig
+    from base_tpu_torch.io.phot import read_phot
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.parallel import run as prun
+    from base_tpu_torch.tools import main as cli
+
+    dev = mesh.device
+    model = cli._build_model_from_phot(s, read_phot(phot), dev)
+    tr = post.default_transform(model)
+    cfg = HMCConfig(n_warmup=N_WARMUP_RESUME, n_samples=N_SAMPLES_RESUME,
+                    l_max=L_MAX_RESUME, target_accept=s.mcmc.targetAccept,
+                    dense_mass=s.mcmc.denseMass,
+                    free_mask=post.free_mask(model))
+    z0 = tr.inverse(torch.as_tensor(s.cluster.start_vector(), device=dev))
+    init = cli._start_chains(z0, N_CHAINS_RESUME, s)
+
+    def run(path, on_window=None):
+        return prun.run_hmc_sharded_checkpointed(
+            model, tr, init, cli._gen(dev, s.mcmc.seed, 1), cfg, mesh,
+            driver.DriverConfig(checkpoint_path=path,
+                                chunk_size=CHUNK_RESUME,
+                                on_window=on_window))
+
+    def stop(ci, zs, lps):
+        if ci == 1:
+            raise _Interrupt
+
+    t0 = time.perf_counter()
+    want = run(None)
+    try:
+        run(ckpt, stop)
+        raise AssertionError("14c: the interrupting on_window never ran")
+    except _Interrupt:
+        pass
+    got = run(ckpt)
+    torch.cuda.synchronize()
+    same = dict(
+        samples=torch.equal(want[0], got[0]),
+        logposts=torch.equal(want[1]["logposts"], got[1]["logposts"]),
+        final_z=torch.equal(want[1]["final_states"].z,
+                            got[1]["final_states"].z),
+        step_size=torch.equal(want[1]["step_size"], got[1]["step_size"]),
+        inv_mass=torch.equal(want[1]["inv_mass"], got[1]["inv_mass"]))
+    res = dict(wall_s=time.perf_counter() - t0, bit_identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"14c: the resumed sharded run differs: {same}")
+    return res
+
+
+def parallel_rank(rank: int, world: int, out_dir: str, job: str,
+                  cli_run: tuple | None = None) -> None:
+    """One rank of a world spawned on the card (torch.multiprocessing's
+    entry): joins it, runs `job` ("density": config 1's sharded density at
+    MESHES14; "14b": that, config 5's, sharded HMC and, with cli_run =
+    (settings args, .phot), the sharded resume), and saves its results to
+    out_dir/rank<r>.pt."""
+    from base_tpu_torch.ops import build
+    from base_tpu_torch.parallel import distributed
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    build.library()                      # built by the parent: loaded here
+    dev = distributed.initialize(
+        "cuda", init_method=f"file://{out_dir}/store", world_size=world,
+        rank=rank, local_rank=rank, local_world_size=world,
+        timeout_s=WORLD14_TIMEOUT_S)
+    res, draws = {}, {}
+    try:
+        data = make_data()
+        model = make_model(data, dev)
+        model99 = make_model(tuple(a[:99] for a in data), dev)
+        z = chain_points(model, 0.05, seed=1)
+        model5 = z5 = None
+        if job == "14b":
+            from base_tpu_torch.grids import synthetic
+            from base_tpu_torch.model import posterior as post
+            from base_tpu_torch.model.stardata import make_ms_stars
+
+            mags, sig = make_data5()
+            model5 = post.make_single_pop_model(
+                synthetic.make_grid(n_eep=N_EEP, device=dev),
+                make_ms_stars(mags, sig, cm_prior=0.99, device=dev), TRUTH,
+                PRIOR_SIGMA, n_q=N_Q, upsample=UPSAMPLE5, device=dev)
+            z5 = chain_points(model5, 0.02, seed=5,
+                              n_chains=N_REP5 * N_PARTICLES5)
+        for shape in MESHES14:
+            mesh = make_mesh(*shape)
+            key = f"{shape[0]}x{shape[1]}"
+            r = dict(mesh=mesh.describe(), world=world)
+            r["config1"] = sharded_density_errs(model, mesh, z)
+            r["config1_99"] = sharded_density_errs(model99, mesh, z)
+            if job == "14b":
+                t0 = time.perf_counter()
+                r["config5"] = sharded_density_errs(model5, mesh, z5,
+                                                    grad=False)
+                r["config5_grad"] = sharded_density_errs(
+                    model5, mesh, z5[:N_ROWS5_GRAD])
+                r["config5"]["wall_s"] = time.perf_counter() - t0
+                r["hmc"], draws[key] = sharded_hmc(model, mesh,
+                                                   f"14b {key}")
+                if cli_run is not None and shape == (1, 2):
+                    from base_tpu_torch.io.settings import load_settings
+
+                    sets, phot = cli_run
+                    r["resume"] = sharded_resume(
+                        load_settings(sets[0], list(sets[1:])), phot,
+                        f"{out_dir}/resume.ckpt", mesh)
+            res[key] = r
+        torch.save(dict(results=res, draws=draws), f"{out_dir}/rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def spawn_world(world: int, job: str, cli_run=None) -> list:
+    """Spawn a world of `world` ranks on the card running parallel_rank's
+    `job`; returns every rank's saved results."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from base_tpu_torch.ops import build
+
+    build.build()
+    with tempfile.TemporaryDirectory() as out_dir:
+        tmp.start_processes(parallel_rank,
+                            args=(world, out_dir, job, cli_run),
+                            nprocs=world, start_method="spawn")
+        return [torch.load(f"{out_dir}/rank{r}.pt", map_location="cpu")
+                for r in range(world)]
+
+
+def run_parallel(dev, model, z) -> dict:
+    """Phase 14 (see the comment above MESHES14)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from base_tpu_torch.inference.hmc import run_hmc, value_and_grad
+    from base_tpu_torch.io.phot import read_phot
+    from base_tpu_torch.io.res import read_res
+    from base_tpu_torch.io.settings import load_settings
+    from base_tpu_torch.parallel import distributed
+    from base_tpu_torch.parallel import run as prun
+    from base_tpu_torch.parallel.mesh import make_mesh
+    from base_tpu_torch.tools import main as cli
+
+    res = {}
+    log("phase 14a: a world of one, mesh 1 x 1 on cuda:0")
+    tr = transform(model)
+    cfg = hmc14_cfg()
+    with distributed.world_of_one("cuda"):
+        mesh = make_mesh(1, 1)
+        log(f"  {mesh.describe()}")
+        if mesh.backend != "nccl":
+            raise AssertionError(f"14a: backend {mesh.backend}, not nccl")
+        fz = prun._logpost_z(model, tr, mesh)
+        reset_launch_counts()
+        prun.reset_counts()
+        v, g = value_and_grad(fz)(z)
+        check_one_launch_per_call("14a density", launch_counts(),
+                                  prun.density_calls)
+        want_v, want_g = density_fn(model)(z)
+        density_same = torch.equal(v, want_v) and torch.equal(g, want_g)
+        prun.reset_counts()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zs, info = prun.run_hmc_sharded(
+            model, tr, hmc14_init(model),
+            torch.Generator(device=dev).manual_seed(4), cfg, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls, counts = prun.density_calls, launch_counts()
+        g0 = mesh.chain_generator(torch.Generator(device=dev).manual_seed(4))
+    check_one_launch_per_call("14a HMC", counts, calls)
+    t0 = time.perf_counter()
+    want_zs, want_info = run_hmc(logpost_z_fn(model), hmc14_init(model), g0,
+                                 cfg)
+    torch.cuda.synchronize()
+    hmc_same = {k: torch.equal(a, b) for k, (a, b) in dict(
+        samples=(zs, want_zs),
+        logposts=(info["logposts"], want_info["logposts"]),
+        step_size=(info["step_size"], want_info["step_size"]),
+        inv_mass=(info["inv_mass"], want_info["inv_mass"])).items()}
+    res["14a"] = dict(backend=mesh.backend, world=1,
+                      density_bit_identical=density_same,
+                      hmc_bit_identical=hmc_same, wall_s=wall,
+                      density_calls=calls, calls_per_s=calls / wall,
+                      run_hmc_wall_s=time.perf_counter() - t0,
+                      launches=counts, accept=float(info["accept_prob"]))
+    log("  " + json.dumps(res["14a"]))
+    if not (density_same and all(hmc_same.values())):
+        raise AssertionError("14a: the 1 x 1 mesh differs from the "
+                             "unsharded path")
+
+    root = Path(__file__).resolve().parent
+    conf = str(root / "conf" / "base9.yaml")
+    sets = [a for x in CLI_SETS for a in ("--set", x)]
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "run")
+        args = ["--config", conf, "--outputFileBase", base, *sets,
+                "--device", str(dev)]
+        log("phase 14c: simulate -> scatter -> single-pop --mesh 1,2 "
+            "--metrics (two ranks on the card)")
+        cli.main(["simulate", *args])
+        cli.main(["scatter", *args, "--photFile", base + ".sim.phot"])
+        metrics_path = os.path.join(tmp, "m.jsonl")
+        t0 = time.perf_counter()
+        cli.main(["single-pop", *args, "--photFile", base + ".phot",
+                  "--mesh", "1,2", "--metrics", metrics_path])
+        wall = time.perf_counter() - t0
+        with open(metrics_path) as f:
+            metrics = [json.loads(line) for line in f][-1]
+        chain = read_res(base + ".res")
+        age = chain.params[:, 0]
+        s = load_settings(conf, list(CLI_SETS))
+        truth = float(s.cluster.starting_logAge)
+        res["14c"] = dict(
+            mesh=metrics["mesh"], backend=metrics["backend"], world=2,
+            tool_wall_s=wall, single_pop_wall_s=metrics["wall_s"],
+            density_calls_rank0=metrics["density_calls"],
+            calls_per_s=metrics["density_calls"] / metrics["wall_s"],
+            samples_per_s=metrics["samples_per_sec"],
+            rows=int(chain.params.shape[0]), accept=metrics["accept"],
+            age=dict(mean=float(age.mean()), sd=float(age.std()),
+                     truth=truth),
+            stars=int(read_phot(base + ".phot").n_stars))
+        log("  " + json.dumps(res["14c"]))
+        if not (res["14c"]["rows"] == s.mcmc.runIter
+                and np.isfinite(chain.params).all()
+                and np.isfinite(chain.logpost).all()
+                and metrics["mesh"] == "1,2" and metrics["backend"] == "gloo"
+                and abs(float(age.mean()) - truth) < 4 * float(age.std())):
+            raise AssertionError(f"14c: single-pop --mesh 1,2 {res['14c']}")
+
+        log("phase 14b: two ranks on the one card (the backend rule: gloo), "
+            "meshes (1, 2) and (2, 1); 14c's sharded resume")
+        t0 = time.perf_counter()
+        ranks = spawn_world(2, "14b", ((conf, *CLI_SETS), base + ".phot"))
+        res["14b_wall_s"] = time.perf_counter() - t0
+    for key in ranks[0]["results"]:
+        res[f"14b {key}"] = [r["results"][key] for r in ranks]
+        log(f"  {key}: " + json.dumps(res[f"14b {key}"]))
+        if not torch.equal(ranks[0]["draws"][key], ranks[1]["draws"][key]):
+            raise AssertionError(f"14b {key}: the ranks' draws differ")
+    log(f"  14b world: {res['14b_wall_s']:.1f} s with the spawn")
+    return res
+
+
 def kernel_outputs(models: dict, z) -> dict:
     """Kernels 1 and 4 on phase 2's inputs at each shape, with the inputs,
     for --save-outputs."""
@@ -2711,6 +3111,10 @@ def main() -> None:
     # form of kernels 3 and 4.
     wide = run_wide(torch.device("cuda", 0), (model, z))
 
+    # 14. The parallel layer: a 1 x 1 mesh, the CLI's --mesh 1,2, and two
+    # ranks on the card at meshes (1, 2) and (2, 1).
+    par = run_parallel(torch.device("cuda", 0), model, z)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report[name]
@@ -2736,7 +3140,13 @@ def main() -> None:
             max_abs_err_cli=cli["max_abs_err"][name],
             launches_wide=wide["launches"][name],
             max_abs_err_wide=wide["max_abs_err"][name],
-            b29=wide["kernels_b29"][name]))
+            b29=wide["kernels_b29"][name],
+            # Phase 14's HMC: the 1 x 1 mesh, and each rank of the two
+            # meshes on the card (each rank's launches = its calls).
+            launches_parallel={
+                "14a": par["14a"]["launches"][name],
+                **{k[4:]: [r["hmc"]["launches"][name] for r in par[k]]
+                   for k in par if k.startswith("14b ")}}))
         if not all(math.isfinite(v) for k, v in kernels[-1].items()
                    if k.startswith(("ms", "plain_ms", "bound_ms",
                                     "device_ms"))):
@@ -2758,6 +3168,7 @@ def main() -> None:
             raise AssertionError(f"{name}: a time is missing or not finite")
     print(json.dumps({"cli": cli}))
     print(json.dumps({"wide": wide}))
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -284,7 +284,9 @@ def test_device_rules(workdir):
     """usePallas false on a CUDA device raises (no card needed: the rule
     is resolve_use_pallas); auto means the kernels iff CUDA; typos raise;
     with no CUDA device the CLI's default device exits non-zero, and
-    --mesh and convert-models without --src/--dst exit non-zero."""
+    convert-models without --src/--dst exits non-zero.  --mesh is
+    base_tpu's: make-cmd ignores it, and a mesh spec that is not C,S
+    exits non-zero."""
     rp = tsettings.resolve_use_pallas
     for v in (False, "false", "off", "0"):
         with pytest.raises(ValueError, match="mcmc.usePallas"):
@@ -296,7 +298,11 @@ def test_device_rules(workdir):
         with pytest.raises(ValueError):
             rp(bad, "cpu")
     d, args = workdir
-    cases = [["make-cmd", *args, "--mesh", "2,1"], ["convert-models", *args]]
+    tmain.main(["make-cmd", *args, "--mesh", "2,1"])
+    assert (d / "run.cmd").exists()
+    cases = [["single-pop", *args, "--photFile", str(d / "run.phot"),
+              "--mesh", spec] for spec in ("2,x", "2,1,1", "0,1")]
+    cases.append(["convert-models", *args])
     if not torch.cuda.is_available():
         cases.append(["make-cmd", *[x for x in args
                                     if x not in ("--device", "cpu")]])

@@ -700,3 +700,47 @@ def _launches():
     return (tb.table_fwd_launches, tb.table_bwd_launches,
             ml.marglik_fwd_launches, ml.marglik_bwd_launches,
             ml.marglik_mm_fwd_launches, ml.marglik_mm_bwd_launches)
+
+
+def test_mesh_1x1_density_bit_identical(cuda):
+    """chip_smoke.py phase 14a's density check: in a world of one (NCCL,
+    by the backend rule) a 1 x 1 mesh's local_logpost_fn, value and
+    gradient on config 1 at 16 chains, equals the unsharded card density
+    bit for bit, each kernel launched once."""
+    import chip_smoke
+    from base_tpu_torch.inference.hmc import value_and_grad
+    from base_tpu_torch.parallel import distributed
+    from base_tpu_torch.parallel import run as prun
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    model = chip_smoke.make_model(chip_smoke.make_data(), cuda)
+    z = chip_smoke.chain_points(model, 0.05, seed=1)[:16]
+    with distributed.world_of_one("cuda"):
+        mesh = make_mesh(1, 1)
+        assert mesh.backend == "nccl"
+        fz = prun._logpost_z(model, chip_smoke.transform(model), mesh)
+        chip_smoke.reset_launch_counts()
+        v, g = value_and_grad(fz)(z)
+        assert chip_smoke.launch_counts() == dict.fromkeys(
+            chip_smoke.KERNELS, 1)
+    want_v, want_g = chip_smoke.density_fn(model)(z)
+    assert torch.equal(v, want_v) and torch.equal(g, want_g)
+
+
+def test_two_ranks_on_one_card_density(cuda):
+    """chip_smoke.py phase 14b's density checks: two ranks spawned on the
+    card (gloo: they share it), at meshes (1, 2) and (2, 1), the sharded
+    value and gradient on config 1 with 100 stars and with 99 (padded to
+    100) within tests/test_parallel.py's bounds of the unsharded card
+    density (chip_smoke.sharded_density_errs raises past them)."""
+    import chip_smoke
+
+    ranks = chip_smoke.spawn_world(2, "density")
+    for r in ranks:
+        assert set(r["results"]) == {"1x2", "2x1"}
+        for res in r["results"].values():
+            assert "backend gloo" in res["mesh"]
+            for key in ("config1", "config1_99"):
+                assert res[key]["value_rel_err"] <= \
+                    chip_smoke.SHARD_VALUE_RTOL
+                assert res[key]["grad_err_over_bound"] <= 1.0

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of base_tpu_torch, and neither
-chip_smoke.py nor scripts/torch_profiler_probe.py, imports base_tpu or jax
+"""The port stands alone: no module of base_tpu_torch, and none of
+chip_smoke.py, scripts/torch_profiler_probe.py and
+scripts/torch_mesh_cards.py, imports base_tpu or jax
 (nor PyYAML, which the card's machine need not have); and the port's own
 copies of base_tpu's JAX-free constants, filter tables, settings, .res
 columns and model families equal the originals."""
@@ -36,7 +37,8 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_base_tpu_or_jax():
     files = sorted((ROOT / "base_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts/torch_profiler_probe.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts/torch_profiler_probe.py",
+              ROOT / "scripts/torch_mesh_cards.py"]
     assert len(files) > 20
     for module in ("model/multipop.py", "inference/vi.py",
                    "inference/mh.py", "inference/nuts.py",
@@ -45,7 +47,9 @@ def test_port_imports_no_base_tpu_or_jax():
                    "io/sqlite_store.py", "io/checkpoint.py",
                    "utils/metrics.py", "grids/load.py",
                    "inference/driver.py", "tools/main.py", "grids/parse.py",
-                   "io/native.py"):
+                   "io/native.py", "parallel/distributed.py",
+                   "parallel/mesh.py", "parallel/comm.py",
+                   "parallel/run.py"):
         assert ROOT / "base_tpu_torch" / module in files
     bad = [
         f"{p.relative_to(ROOT)}: {mod}"
@@ -113,3 +117,30 @@ def test_port_ingest_copies_equal_base_tpu():
 
     assert code(ROOT / "base_tpu_torch/io/basetpu_io.cpp") == code(
         ROOT / "native/basetpu_io.cpp")
+
+
+def test_port_parallel_names_equal_base_tpu():
+    """The parallel layer keeps base_tpu's names: every public function of
+    base_tpu.parallel's modules has its counterpart (utils/vma.py has none:
+    parallel.comm's enter / reduce_sum do its job), the axis names are
+    base_tpu's, and pad_to_multiple agrees."""
+    import inspect
+
+    from base_tpu.parallel import distributed as jdist
+    from base_tpu.parallel import mesh as jmesh
+    from base_tpu.parallel import run as jrun
+    from base_tpu_torch.parallel import distributed as tdist
+    from base_tpu_torch.parallel import mesh as tmesh
+    from base_tpu_torch.parallel import run as trun
+
+    for jmod, tmod in ((jdist, tdist), (jmesh, tmesh), (jrun, trun)):
+        names = [n for n, f in vars(jmod).items()
+                 if inspect.isfunction(f) and f.__module__ == jmod.__name__
+                 and not n.startswith("_")]
+        assert names
+        missing = [n for n in names if not callable(getattr(tmod, n, None))]
+        assert not missing, (tmod.__name__, missing)
+    assert (tmesh.CHAIN_AXIS, tmesh.STAR_AXIS) == (jmesh.CHAIN_AXIS,
+                                                   jmesh.STAR_AXIS)
+    for n, k in ((50, 4), (52, 4), (1, 3), (10000, 2)):
+        assert tmesh.pad_to_multiple(n, k) == jmesh.pad_to_multiple(n, k)

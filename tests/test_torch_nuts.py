@@ -256,8 +256,21 @@ def test_one_density_call_per_leaf():
 
 
 def test_axis_name_not_supported():
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        nuts.run_nuts(gauss_lp, torch.zeros(2, 2),
-                      torch.Generator().manual_seed(0),
-                      nuts.NUTSConfig(n_warmup=2, n_samples=2),
-                      axis_name="chains")
+    """base_tpu's axis_name is the port's `group` (a chain process group):
+    run_nuts over the group of a world of one equals run_nuts without a
+    group, bit for bit (base_tpu_torch.parallel runs the wider worlds)."""
+    import torch.distributed as dist
+
+    from base_tpu_torch.parallel import distributed
+
+    cfg = nuts.NUTSConfig(n_warmup=8, n_samples=4, max_depth=3, n_windows=2,
+                          dense_mass=True)
+    want, wi = nuts.run_nuts(gauss_lp, _init(1, (4, 2)),
+                             torch.Generator().manual_seed(0), cfg)
+    with distributed.world_of_one("cpu"):
+        got, gi = nuts.run_nuts(gauss_lp, _init(1, (4, 2)),
+                                torch.Generator().manual_seed(0), cfg,
+                                group=dist.group.WORLD)
+    assert torch.equal(got, want)
+    for key in ("step_size", "inv_mass", "logposts", "accept_prob"):
+        assert torch.equal(gi[key], wi[key]), key

@@ -1,0 +1,631 @@
+"""The port's parallel layer (base_tpu_torch.parallel) on the CPU: one
+spawned world of 4 gloo ranks runs every sharded case, on the
+`cluster_model` recipe of tests/test_parallel.py (50 stars, n_q 6, no
+binaries) built in both packages from the same numpy inputs, and the
+parent holds the results to base_tpu's shard_map, to the port unsharded,
+and to tests/test_parallel.py's checks:
+
+  (a) the star-sharded value and gradient at meshes (1, 4) (50 stars pad
+      to 52) and (2, 2), against base_tpu's shard_map local_logpost_fn on
+      the conftest's 8 CPU devices (mesh 2 x 4) and against the port
+      unsharded, at test_parallel.py's bounds; a two-population model and
+      one with WDs (the CLI's simulated photometry) against the port
+      unsharded;
+  (b) a plain forward all-reduce in place of parallel.comm's enter /
+      reduce_sum pair fails (a);
+  (c) pooled moments, the frozen step size, the ESS fraction and
+      systematic resampling over a chain group of 4 against the unsharded
+      functions on the concatenated chains;
+  (d) sharded HMC, MH (with and without a burn-in model), NUTS, SMC and
+      VI with test_parallel.py's checks, at its chain and particle counts
+      and shorter runs (the plain density costs ~10-15 ms a call on one
+      CPU thread, against base_tpu's compiled one);
+  (e) the star shards of a chain block draw bit for bit alike;
+  (f) a 1 x 1 mesh (a world of one, in this process) equals the
+      unsharded path bit for bit;
+  (g) a sharded checkpointed run interrupted and resumed equals an
+      uninterrupted one bit for bit.
+
+The workers import no JAX: the JAX imports stay inside the parent's
+fixtures and tests.
+"""
+import dataclasses
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from base_tpu_torch.inference.vi import VIConfig
+
+torch.set_num_threads(1)
+
+TRUTH = np.array([9.3, 0.27, -0.5, 10.0, 0.3, 0.5, 0.0, 0.0, 0.0], np.float32)
+PRIOR_SIGMA = np.array([-1, -1, 0.3, 0.2, 0.1, -1, -1, -1, -1], np.float32)
+# Two populations: Y_A, Y_B, lambda after the nine shared slots.
+TRUTH_MP = np.concatenate([TRUTH, [0.25, 0.30, 0.6]]).astype(np.float32)
+PRIOR_SIGMA_MP = np.concatenate([PRIOR_SIGMA, [0.05, 0.05, -1]]).astype(
+    np.float32)
+DENSITY_MESHES = ((1, 4), (2, 2))
+VI_CFG = VIConfig(n_steps=200, n_mc=4, full_rank=True, learning_rate=2e-2,
+                  init_log_sd=-3.0)
+WORLD = 4
+WORLD_DEADLINE_S = 600
+N_CHAINS = 8
+
+# The CLI's small cluster with WDs (tests/test_torch_cli.py's config).
+WD_CONFIG = (
+    "cluster:\n"
+    "  starting_logAge: 9.5\n  starting_Fe_H: -0.3\n"
+    "  starting_distMod: 8.0\n  starting_Av: 0.15\n"
+    "  prior_Fe_H: -0.3\n  prior_distMod: 8.0\n  prior_Av: 0.15\n"
+    "simCluster:\n  nStars: 40\n  percentBinary: 0.3\n  percentDB: 0.1\n"
+    "scatterCluster:\n  limitMag: 26.0\n"
+    "mcmc:\n  upsample: 1\n  nMassRatio: 4\n"
+)
+
+
+def _fields(obj, static=("bands", "name")):
+    return {f.name: (getattr(obj, f.name) if f.name in static
+                     else np.asarray(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj)}
+
+
+# ---- the models and inputs, built alike in the parent and the workers ----
+
+def _port_model(inp, cls_name="single"):
+    from base_tpu_torch import convert
+    from base_tpu_torch.model import multipop as mp
+    from base_tpu_torch.model import posterior as post
+
+    grid = convert.grid_from_numpy(**inp["grid"], device="cpu")
+    stars = convert.stars_from_numpy(**inp["stars"], device="cpu")
+    if cls_name == "multi":
+        return mp.make_multipop_model(grid, stars, TRUTH_MP, PRIOR_SIGMA_MP,
+                                      n_q=6, binaries=False,
+                                      use_pallas=inp["use_pallas"],
+                                      device="cpu")
+    return post.make_single_pop_model(grid, stars, TRUTH, PRIOR_SIGMA, n_q=6,
+                                      binaries=False,
+                                      use_pallas=inp["use_pallas"],
+                                      device="cpu")
+
+
+def _wd_model(inp):
+    """The single-population model the CLI builds from its simulated
+    photometry, WDs included."""
+    from base_tpu_torch.io import phot as photio
+    from base_tpu_torch.io.settings import load_settings
+    from base_tpu_torch.tools import main as tmain
+
+    s = load_settings(inp["wd_config"], [])
+    return tmain._build_model_from_phot(
+        s, photio.read_phot(inp["wd_phot"]), torch.device("cpu"))
+
+
+def _points(truth, free, n=3, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = np.tile(truth, (n, 1))
+    pts[1:] += rng.normal(0.0, 0.03, (n - 1, len(truth))) * np.asarray(free)
+    return pts.astype(np.float32)
+
+
+def _density_points(kind):
+    if kind == "multi":
+        return _points(TRUTH_MP, [1, 0, 1, 1, 1, 0, 0, 0, 0, 0.2, 0.2, 1])
+    if kind == "wd":
+        truth = np.array([9.5, 0.27, -0.3, 8.0, 0.15, 0.5, 0.75, 0.1, 0.0],
+                         np.float32)
+        return _points(truth, [1, 0, 1, 1, 1, 1, 1, 0.3, 0])
+    return _points(TRUTH, [1, 1, 1, 1, 1, 0, 0, 0, 0])
+
+
+def _pooled_inputs():
+    """Chain-axis arrays for (c): samples [8, 30, 5], DA averages [8],
+    log weights [2, 64] and particles [2, 64, 3] of two replicates, and
+    the replicates' uniforms."""
+    rng = np.random.default_rng(3)
+    zs = (rng.normal(size=(N_CHAINS, 30, 5)) * [1e-3, 0.1, 1, 3, 0.01]
+          + [10.0, 0.3, -1, 2, 0]).astype(np.float32)
+    le = rng.normal(-3.0, 0.2, N_CHAINS).astype(np.float32)
+    log_w = rng.normal(0.0, 2.0, (2, 64)).astype(np.float32)
+    z = rng.normal(size=(2, 64, 3)).astype(np.float32)
+    u = np.array([0.31, 0.77], np.float32)
+    return tuple(torch.from_numpy(a) for a in (zs, le, log_w, z, u))
+
+
+def _pooled(group, block):
+    """(c)'s statistics of `block`'s slices, over `group`."""
+    from base_tpu_torch.inference import hmc, smc
+
+    zs, le, log_w, z, u = _pooled_inputs()
+    zs, le = block(zs, 0), block(le, 0)
+    log_w, z = block(log_w, 1), block(z, 1)
+    mean, var = hmc._pooled_mean_var(zs, group)
+    c = torch.zeros_like(le)
+    states = hmc.HMCChainState(z=zs[:, 0], logpost=c, grad=zs[:, 0],
+                               da=hmc.DAState(c, le, c, c, c))
+    zr, anc = smc._systematic_resample(u, log_w, z, group)
+    return dict(mean=mean, var=var, cov=hmc._pooled_cov(zs, group),
+                eps=hmc.freeze_step_size(states, group),
+                ess=smc._ess_fraction(log_w, 64.0, group), zr=zr, anc=anc)
+
+
+# ---- the worker: one rank of the spawned world ----------------------------
+
+class _Interrupt(Exception):
+    pass
+
+
+def _value_grad(model, mesh, pts):
+    from base_tpu_torch.parallel import run as prun
+
+    local = prun.shard_stars(model, mesh)
+    f = prun.local_logpost_fn(local, local.stars, mesh.star_group,
+                              local.wd_stars)
+    x = torch.from_numpy(pts).requires_grad_(True)
+    v = f(x)
+    (g,) = torch.autograd.grad(v.sum(), x)
+    return v.detach(), g
+
+
+def _samplers(model, mesh, d):
+    """(d), (e) and (g) at mesh (2, 2)."""
+    from base_tpu_torch.inference import hmc, mh, nuts, smc, vi
+    from base_tpu_torch.inference.driver import DriverConfig
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.parallel import run as prun
+
+    out = {}
+    tr = post.default_transform(model)
+    z0 = tr.inverse(torch.from_numpy(TRUTH))
+
+    def init(seed):
+        return z0 + 0.01 * torch.randn(
+            N_CHAINS, 9, generator=torch.Generator().manual_seed(seed))
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    prun.reset_counts()
+    cfg = hmc.HMCConfig(n_warmup=50, n_samples=50, l_max=6, n_windows=2)
+    zs, info = prun.run_hmc_sharded(model, tr, init(8), gen(9), cfg, mesh)
+    out["hmc"] = dict(zs=zs, logposts=info["logposts"],
+                      step_size=info["step_size"],
+                      accept=info["accept_prob"],
+                      calls=prun.density_calls)
+
+    step0 = torch.tensor([0.05, 0.02, 0.05, 0.05, 0.03, 0, 0, 0, 0])
+    x0 = torch.from_numpy(np.tile(TRUTH, (N_CHAINS, 1)))
+    xs, info = prun.run_mh_sharded(
+        model, x0, gen(7), step0,
+        mh.MHConfig(n_stage1=100, n_stage2=100, n_main=200), mesh)
+    out["mh"] = dict(xs=xs, logposts=info["logposts"],
+                     accept=info["accept_rate"])
+
+    burn = dataclasses.replace(model, stars=type(model.stars)(
+        **{f.name: getattr(model.stars, f.name)[:30]
+           for f in dataclasses.fields(model.stars)}))
+    step0 = torch.zeros(9)
+    step0[[0, 2, 3, 4]] = torch.tensor([0.03, 0.05, 0.05, 0.02])
+    xs, info = prun.run_mh_sharded(
+        model, x0, gen(33), step0,
+        mh.MHConfig(n_stage1=50, n_stage2=60, n_main=60), mesh,
+        burn_model=burn)
+    out["mh_burn"] = dict(xs=xs, logposts=info["logposts"])
+
+    zs, info = prun.run_nuts_sharded(
+        model, tr, init(18), gen(19),
+        nuts.NUTSConfig(n_warmup=30, n_samples=30, max_depth=4,
+                        n_windows=2), mesh)
+    out["nuts"] = dict(zs=zs, accept=info["accept_prob"],
+                       mean_leapfrogs=info["mean_leapfrogs"],
+                       logposts=info["logposts"])
+
+    particles, info = prun.run_smc_sharded(
+        model, tr, z0, gen(17),
+        smc.SMCConfig(n_particles=128, n_move=2, max_stages=16), mesh,
+        q0_sd=0.3)
+    out["smc"] = dict(particles=particles, **info)
+    particles, info = prun.run_smc_sharded(
+        model, tr, z0, gen(17),
+        smc.SMCConfig(n_particles=32, n_move=2, max_stages=16), mesh,
+        q0_sd=0.3, n_rep=2)
+    out["smc_rep"] = dict(particles=particles, **info)
+
+    res = prun.run_vi_sharded(model, tr, z0, gen(31), VI_CFG, mesh)
+    draws, cov, _ = prun.vi_warm_start_sharded(
+        model, tr, z0, gen(32), N_CHAINS, mesh,
+        free_mask=post.free_mask(model),
+        cfg=dataclasses.replace(VI_CFG, n_steps=50))
+    out["vi"] = dict(mu=res.mu, scale=res.scale, final_elbo=res.final_elbo,
+                     draws=draws, cov=cov)
+
+    # (g): interrupted after chunk 1 (its checkpoint written), resumed.
+    rcfg = hmc.HMCConfig(n_warmup=20, n_samples=30, l_max=4, n_windows=2)
+
+    def stop(ci, zs, lps):
+        if ci == 1:
+            raise _Interrupt
+
+    path = f"{d}/sharded.ckpt"
+    try:
+        prun.run_hmc_sharded_checkpointed(
+            model, tr, init(41), gen(42), rcfg, mesh,
+            DriverConfig(checkpoint_path=path, chunk_size=10,
+                         on_window=stop))
+        raise AssertionError("the run was not interrupted")
+    except _Interrupt:
+        pass
+    resumed = prun.run_hmc_sharded_checkpointed(
+        model, tr, init(41), gen(42), rcfg, mesh,
+        DriverConfig(checkpoint_path=path, chunk_size=10))
+    whole = prun.run_hmc_sharded_checkpointed(
+        model, tr, init(41), gen(42), rcfg, mesh,
+        DriverConfig(chunk_size=10))
+    out["resume"] = [(zs, info["logposts"], info["step_size"],
+                      info["inv_mass"]) for zs, info in (resumed, whole)]
+    return out
+
+
+def _world(rank, d):
+    """One rank of the spawned world (torch.multiprocessing's entry)."""
+    torch.set_num_threads(1)
+    from base_tpu_torch.parallel import comm, distributed
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize("cpu", init_method=f"file://{d}/store",
+                           world_size=WORLD, rank=rank, local_rank=rank,
+                           local_world_size=WORLD, timeout_s=120)
+    try:
+        inp = torch.load(f"{d}/inputs.pt", weights_only=False)
+        models = dict(single=_port_model(inp),
+                      multi=_port_model(inp, "multi"), wd=_wd_model(inp))
+        out = {}
+        for shape in DENSITY_MESHES:
+            mesh = make_mesh(*shape)
+            for kind, model in models.items():
+                out["density", kind, shape] = _value_grad(
+                    model, mesh, _density_points(kind))
+            enter = comm.enter
+            comm.enter = lambda x, group: x    # a plain forward all-reduce
+            try:
+                out["plain_allreduce", shape] = _value_grad(
+                    models["single"], mesh, _density_points("single"))
+            finally:
+                comm.enter = enter
+        mesh = make_mesh(WORLD, 1)
+        out["pooled"] = _pooled(mesh.chain_group, mesh.chain_block)
+        out.update(_samplers(models["single"], make_mesh(2, 2), d))
+        torch.save(out, f"{d}/rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+# ---- the parent ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def world(small_grid, tmp_path_factory):
+    """base_tpu's cluster_model, the port's inputs from it, and the
+    results of the spawned world's 4 ranks."""
+    import jax
+    import jax.numpy as jnp
+    import torch.multiprocessing as tmp
+
+    from base_tpu.model import posterior as jpost
+    from base_tpu.model.stardata import make_ms_stars
+    from base_tpu.sim.scatter import scatter_cluster
+    from base_tpu.sim.simulate import simulate_cluster
+    from base_tpu_torch.tools import main as tmain
+
+    d = tmp_path_factory.mktemp("torch_parallel")
+    cat = simulate_cluster(small_grid, jnp.asarray(TRUTH), 50,
+                           jax.random.PRNGKey(21), percent_binary=0.0)
+    sc = scatter_cluster(cat.mags, jax.random.PRNGKey(22), limit_mag=24.0)
+    stars = make_ms_stars(np.asarray(sc.mags), np.asarray(sc.sigmas),
+                          cm_prior=0.999)
+    jm = jpost.make_single_pop_model(small_grid, stars, prior_mean=TRUTH,
+                                     prior_sigma=PRIOR_SIGMA, n_q=6,
+                                     binaries=False)
+    cfg = d / "wd.yaml"
+    cfg.write_text(WD_CONFIG)
+    args = ["--config", str(cfg), "--outputFileBase", str(d / "wd"),
+            "--seed", "5", "--device", "cpu"]
+    tmain.main(["simulate", *args])
+    tmain.main(["scatter", *args, "--photFile", str(d / "wd.sim.phot")])
+    inp = dict(grid=_fields(small_grid), stars=_fields(jm.stars),
+               use_pallas=bool(jm.use_pallas), wd_config=str(cfg),
+               wd_phot=str(d / "wd.phot"))
+    torch.save(inp, d / "inputs.pt")
+    ctx = tmp.start_processes(_world, args=(str(d),), nprocs=WORLD,
+                              start_method="spawn", join=False)
+    deadline = time.monotonic() + WORLD_DEADLINE_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the spawned world ran past {WORLD_DEADLINE_S} s")
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+             for r in range(WORLD)]
+    return jm, inp, ranks
+
+
+def _unsharded(inp, kind):
+    """The port's own density and its gradient at the kind's points."""
+    from base_tpu_torch.model import multipop as mp
+    from base_tpu_torch.model import posterior as post
+
+    model = _wd_model(inp) if kind == "wd" else _port_model(inp, kind)
+    log_post = mp.log_post if kind == "multi" else post.log_post
+    x = torch.from_numpy(_density_points(kind)).requires_grad_(True)
+    v = log_post(model, x)
+    (g,) = torch.autograd.grad(v.sum(), x)
+    return v.detach().numpy(), g.numpy()
+
+
+def _check_parallel_bounds(got_v, got_g, want_v, want_g):
+    """tests/test_parallel.py's bounds: the value to 1e-5 relative (the
+    star sum reassociated across shards), the gradient to rtol 5e-3 and
+    2e-3 of its largest component."""
+    np.testing.assert_allclose(got_v, want_v, rtol=1e-5)
+    np.testing.assert_allclose(got_g, want_g, rtol=5e-3,
+                               atol=2e-3 * float(np.abs(want_g).max()))
+
+
+@pytest.fixture(scope="module")
+def base_tpu_sharded(world, small_grid):
+    """base_tpu's shard_map local_logpost_fn (mesh 2 x 4 on the 8 CPU
+    devices) and its gradient at the single-population points."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from base_tpu.parallel import run as jrun
+    from base_tpu.parallel.mesh import make_mesh
+
+    jm = world[0]
+    mesh = make_mesh(n_chain_shards=2, n_star_shards=4)
+    sharded = jrun.shard_stars(jm, mesh)
+    frame = dataclasses.replace(sharded, stars=None)
+
+    def device_fn(stars_local, params):
+        f = jrun.local_logpost_fn(frame, stars_local, jrun.STAR_AXIS)
+        return jax.value_and_grad(f)(params)
+
+    fn = jax.jit(jax.shard_map(
+        device_fn, mesh=mesh, in_specs=(jrun._star_specs(sharded.stars), P()),
+        out_specs=(P(), P()), check_vma=True))
+    vg = [fn(sharded.stars, jnp.asarray(p))
+          for p in _density_points("single")]
+    return (np.array([float(v) for v, _ in vg]),
+            np.stack([np.asarray(g) for _, g in vg]))
+
+
+@pytest.mark.parametrize("shape", DENSITY_MESHES)
+def test_star_sharded_logpost_and_grad_match_base_tpu(world, base_tpu_sharded,
+                                                      shape):
+    """(a) The port's star-sharded density and gradient, on every rank,
+    against base_tpu's shard_map and against the port unsharded (mesh
+    (1, 4) pads the 50 stars to 52: padding must not leak)."""
+    _, inp, ranks = world
+    want_v, want_g = _unsharded(inp, "single")
+    for r in ranks:
+        v, g = (t.numpy() for t in r["density", "single", shape])
+        _check_parallel_bounds(v, g, *base_tpu_sharded)
+        _check_parallel_bounds(v, g, want_v, want_g)
+
+
+@pytest.mark.parametrize("shape", DENSITY_MESHES)
+def test_star_sharded_multipop_and_wd_match_unsharded(world, shape):
+    """(a) The two-population density and the one with WDs (MS and WD
+    stars both sharded and padded) against the port unsharded."""
+    _, inp, ranks = world
+    for kind in ("multi", "wd"):
+        want_v, want_g = _unsharded(inp, kind)
+        for r in ranks:
+            v, g = (t.numpy() for t in r["density", kind, shape])
+            _check_parallel_bounds(v, g, want_v, want_g)
+
+
+@pytest.mark.parametrize("shape", DENSITY_MESHES)
+def test_plain_forward_allreduce_fails(world, shape):
+    """(b) The gradient rule is load-bearing: with a plain forward
+    all-reduce (no enter) each rank keeps its own stars' gradient, and
+    (a)'s gradient check fails while the value still passes."""
+    _, inp, ranks = world
+    want_v, want_g = _unsharded(inp, "single")
+    for r in ranks:
+        v, g = (t.numpy() for t in r["plain_allreduce", shape])
+        np.testing.assert_allclose(v, want_v, rtol=1e-5)
+        with pytest.raises(AssertionError):
+            _check_parallel_bounds(v, g, want_v, want_g)
+
+
+def test_pooled_statistics_over_chain_group(world):
+    """(c) Over a chain group of 4: pooled mean / variance / covariance,
+    the frozen step size and the ESS fraction equal the unsharded
+    functions on the concatenated chains to 1e-6; resampling gives every
+    rank its slice of the same ancestry, bit for bit."""
+    _, _, ranks = world
+    want = _pooled(None, lambda x, dim: x)
+    got = [r["pooled"] for r in ranks]
+    for k in ("mean", "var", "cov", "eps", "ess"):
+        for g in got:
+            np.testing.assert_allclose(g[k].numpy(), want[k].numpy(),
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
+    for k in ("zr", "anc"):
+        assert torch.equal(torch.cat([g[k] for g in got], 1), want[k]), k
+
+
+def test_hmc_sharded_chains_move_and_recover(world):
+    """(d) test_parallel.py's sharded HMC checks at mesh (2, 2): every
+    chain moves, the step size is sane, the recorded logposts are the
+    density at the recorded draws, the acceptance and the age are right;
+    and the star shards of a block made the same density calls."""
+    from base_tpu_torch.inference import diagnostics as diag
+    from base_tpu_torch.model import posterior as post
+
+    _, inp, ranks = world
+    h = ranks[0]["hmc"]
+    z = h["zs"]
+    assert z.shape == (50, N_CHAINS, 9)
+    assert (np.ptp(z.numpy(), axis=0).max(axis=-1) > 1e-4).all()
+    assert float(h["step_size"]) > 1e-6
+    assert float(h["accept"]) > 0.3
+    model = _port_model(inp)
+    tr = post.default_transform(model)
+    with torch.no_grad():
+        lp = post.make_logpost_z_fn(model, tr)(z.reshape(-1, 9))
+    np.testing.assert_allclose(h["logposts"].numpy(),
+                               lp.reshape(50, N_CHAINS).numpy(),
+                               atol=0.5, rtol=1e-4)
+    xs = tr.forward(z)
+    assert abs(float(xs[..., 0].mean()) - TRUTH[0]) < 0.1
+    assert torch.isfinite(diag.split_rhat(xs[..., :5])).all()
+    calls = [r["hmc"]["calls"] for r in ranks]
+    assert calls[0] == calls[1] and calls[2] == calls[3] and calls[0] > 0
+
+
+def test_mh_sharded_runs_and_recovers(world):
+    """(d) test_parallel.py's sharded MH."""
+    s = world[2][0]["mh"]
+    xs = s["xs"].numpy()
+    assert xs.shape == (200, N_CHAINS, 9)
+    assert np.isfinite(s["logposts"].numpy()).all()
+    assert np.std(xs[-1, :, 0]) > 0
+    assert abs(xs[100:, :, 0].mean() - TRUTH[0]) < 0.1
+    assert 0.0 < float(s["accept"]) < 1.0
+
+
+def test_mh_sharded_burn_model(world):
+    """(d) useDuringBurnIn under a mesh: stages 1-2 on a 30-star subset
+    model sharded over the same star axis."""
+    x = world[2][0]["mh_burn"]["xs"].numpy()
+    assert x.shape[1] == N_CHAINS
+    assert np.isfinite(x).all()
+    assert x[:, :, 0].std() > 0
+    assert abs(x[:, :, 0].mean() - TRUTH[0]) < 0.15
+
+
+def test_nuts_sharded_runs_and_recovers(world):
+    """(d) test_parallel.py's sharded NUTS."""
+    from base_tpu_torch.model import posterior as post
+
+    _, inp, ranks = world
+    n = ranks[0]["nuts"]
+    assert n["zs"].shape == (30, N_CHAINS, 9)
+    assert float(n["accept"]) > 0.3
+    assert float(n["mean_leapfrogs"]) > 1.0
+    xs = post.default_transform(_port_model(inp)).forward(n["zs"])
+    assert abs(float(xs[..., 0].mean()) - TRUTH[0]) < 0.1
+
+
+def test_smc_sharded_cluster(world):
+    """(d) test_parallel.py's sharded SMC: 128 particles on each of 2
+    chain shards, stars summed inside the tempered density; and two
+    replicates folded on each chain shard."""
+    from base_tpu_torch.model import posterior as post
+
+    _, inp, ranks = world
+    s = ranks[0]["smc"]
+    assert s["particles"].shape == (256, 9)
+    assert float(s["beta"]) == 1.0
+    xs = post.default_transform(_port_model(inp)).forward(s["particles"])
+    assert torch.isfinite(xs).all()
+    assert abs(float(xs[:, 0].mean()) - TRUTH[0]) < 0.1
+    assert np.isfinite(float(s["log_evidence"]))
+    # Two replicates folded on each chain shard (32 particles of each):
+    # both reach beta = 1, with an evidence per replicate and its SE.
+    r = ranks[0]["smc_rep"]
+    assert r["particles"].shape == (2 * 64, 9)
+    assert r["betas"].shape == (2, 16) and float(r["beta"]) == 1.0
+    assert r["log_evidences"].shape == (2,)
+    assert np.isfinite(float(r["log_evidence_se"]))
+
+
+def test_vi_sharded_matches_single_process(world):
+    """(d) test_parallel.py's sharded VI against the port's VI in one
+    process: the pooled ELBO no worse, the means within 6 sd, and the
+    warm start a usable dense metric with the pinned dims at z0."""
+    from base_tpu_torch.inference import vi
+    from base_tpu_torch.model import posterior as post
+
+    _, inp, ranks = world
+    model = _port_model(inp)
+    tr = post.default_transform(model)
+    z0 = tr.inverse(torch.from_numpy(TRUTH))
+    one = vi.run_vi(post.make_logpost_z_fn(model, tr), z0,
+                    torch.Generator().manual_seed(31), VI_CFG)
+    v = ranks[0]["vi"]
+    assert np.isfinite(float(v["final_elbo"]))
+    assert float(v["final_elbo"]) > float(one.final_elbo) - 3.0
+    sd = np.sqrt(np.maximum(np.diag(vi.posterior_covariance(one).numpy()),
+                            1e-12))
+    free = np.asarray(post.free_mask(model)) > 0
+    dmu = np.abs(v["mu"].numpy() - one.mu.numpy())
+    assert (dmu[free] < 6 * sd[free]).all(), (dmu, sd)
+    assert v["draws"].shape == (N_CHAINS, 9) and v["cov"].shape == (9, 9)
+    assert (np.linalg.eigvalsh(v["cov"].numpy()) > 0).all()
+    assert torch.equal(v["draws"][:, ~free],
+                       z0[None, ~free].expand(N_CHAINS, -1))
+
+
+def test_star_shards_draw_identically(world):
+    """(e) Ranks 0 and 1 are the two star shards of chain block 0 (ranks
+    2 and 3 of block 1); after the chain-group gather each holds its star
+    index's copy of every chain: the copies agree bit for bit."""
+    ranks = world[2]
+    for a, b in ((0, 1), (2, 3), (0, 2)):
+        ra, rb = ranks[a], ranks[b]
+        assert torch.equal(ra["hmc"]["zs"], rb["hmc"]["zs"])
+        assert torch.equal(ra["hmc"]["logposts"], rb["hmc"]["logposts"])
+        assert torch.equal(ra["nuts"]["zs"], rb["nuts"]["zs"])
+        assert torch.equal(ra["mh"]["xs"], rb["mh"]["xs"])
+        assert torch.equal(ra["smc"]["particles"], rb["smc"]["particles"])
+        assert torch.equal(ra["vi"]["mu"], rb["vi"]["mu"])
+
+
+def test_mesh_1x1_equals_unsharded(world):
+    """(f) A world of one in this process: the 1 x 1 mesh's density and
+    gradient, and run_hmc_sharded, equal the unsharded path given the
+    chain-shard-0 generator, bit for bit."""
+    from base_tpu_torch.inference import hmc
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.parallel import distributed
+    from base_tpu_torch.parallel import run as prun
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    _, inp, _ = world
+    model = _port_model(inp)
+    tr = post.default_transform(model)
+    z0 = tr.inverse(torch.from_numpy(TRUTH))
+    init = z0 + 0.01 * torch.randn(4, 9,
+                                   generator=torch.Generator().manual_seed(3))
+    cfg = hmc.HMCConfig(n_warmup=16, n_samples=8, l_max=4, n_windows=2,
+                        dense_mass=True)
+    want_v, want_g = _unsharded(inp, "single")
+    with distributed.world_of_one("cpu"):
+        mesh = make_mesh(1, 1)
+        v, g = _value_grad(model, mesh, _density_points("single"))
+        zs, info = prun.run_hmc_sharded(
+            model, tr, init, torch.Generator().manual_seed(5), cfg, mesh)
+        g0 = mesh.chain_generator(torch.Generator().manual_seed(5))
+    assert np.array_equal(v.numpy(), want_v)
+    assert np.array_equal(g.numpy(), want_g)
+    want_zs, want_info = hmc.run_hmc(post.make_logpost_z_fn(model, tr), init,
+                                     g0, cfg)
+    assert torch.equal(zs, want_zs)
+    assert torch.equal(info["logposts"], want_info["logposts"])
+    assert torch.equal(info["inv_mass"], want_info["inv_mass"])
+    assert torch.equal(info["step_size"], want_info["step_size"])
+
+
+def test_sharded_checkpoint_resume_bit_identical(world):
+    """(g) At mesh (2, 2), a checkpointed run interrupted after chunk 1
+    (rank 0 wrote the whole run) and resumed on every rank equals an
+    uninterrupted run bit for bit, on every rank."""
+    for r in world[2]:
+        (zs, lps, eps, im), (zs2, lps2, eps2, im2) = r["resume"]
+        assert zs.shape == (30, N_CHAINS, 9)
+        assert torch.equal(zs, zs2) and torch.equal(lps, lps2)
+        assert torch.equal(eps, eps2) and torch.equal(im, im2)

@@ -219,7 +219,20 @@ def test_folded_replicates_equal_single_runs_and_chunked():
 
 
 def test_axis_name_not_supported():
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        smc.run_smc(log_target, sample_q0, log_q0,
-                    torch.Generator().manual_seed(0), smc.SMCConfig(),
-                    axis_name="chains")
+    """base_tpu's axis_name is the port's `group` (a chain process group):
+    run_smc over the group of a world of one equals run_smc without a
+    group, bit for bit (base_tpu_torch.parallel runs the wider worlds)."""
+    import torch.distributed as dist
+
+    from base_tpu_torch.parallel import distributed
+
+    cfg = smc.SMCConfig(n_particles=128, n_move=2, max_stages=8)
+    want, wi = smc.run_smc(log_target, sample_q0, log_q0,
+                           torch.Generator().manual_seed(0), cfg)
+    with distributed.world_of_one("cpu"):
+        got, gi = smc.run_smc(log_target, sample_q0, log_q0,
+                              torch.Generator().manual_seed(0), cfg,
+                              group=dist.group.WORLD)
+    assert torch.equal(got, want)
+    for key, value in wi.items():
+        assert torch.equal(gi[key], value), key
