@@ -42,7 +42,7 @@ _SIGNATURES = {
     "btt_table_bwd": [_P] * 18 + [_I] * 4 + [_I, _P],
     "btt_marglik_fwd": [_P] * 8 + [_I] * 4 + [_I, _P],
     "btt_marglik_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
-    "btt_marglik_mm_fwd": [_P] * 8 + [_I] * 4 + [_I, _P],
+    "btt_marglik_mm_fwd": [_P] * 9 + [_I] * 4 + [_I, _P],
     "btt_marglik_mm_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
 }
 
@@ -139,6 +139,8 @@ def library() -> ctypes.CDLL:
     lib.btt_error_string.restype = ctypes.c_char_p
     lib.btt_table_bwd_scratch.argtypes = [_I] * 4
     lib.btt_table_bwd_scratch.restype = ctypes.c_longlong
+    lib.btt_marglik_mm_fwd_scratch.argtypes = [_I] * 3
+    lib.btt_marglik_mm_fwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -146,6 +148,13 @@ def library() -> ctypes.CDLL:
 def table_bwd_scratch(C: int, B: int, N: int, E2: int) -> int:
     """Floats of scratch kernel 2 needs for its per-tile partial sums."""
     return int(library().btt_table_bwd_scratch(C, B, N, E2))
+
+
+@functools.cache
+def marglik_mm_fwd_scratch(C: int, S: int, T: int) -> int:
+    """Floats of scratch kernel 3m needs for its segment chunks' partial
+    (max, sum): 0 where one chunk covers the segments."""
+    return int(library().btt_marglik_mm_fwd_scratch(C, S, T))
 
 
 def launch(name: str, tensors, sizes) -> None:

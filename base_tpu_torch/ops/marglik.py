@@ -26,7 +26,9 @@ and gamma from the expanded quadratic as five [S, B] @ [B, T] products
 products, after a per-band centering of obs, lo and hi.  Kernels 3m and 4m
 (csrc/marglik_mm.cu) carry it on the card; `marglik_mm_fwd_plain` and
 `marglik_mm_bwd_plain` are their plain versions.  Off by default, as in
-base_tpu: the expansion cancels in float32, more so as B grows.
+base_tpu: the expansion cancels in float32, more so as B grows.  Kernel 4m
+skips by `marglik_mm_bwd_group_skip`, kernel 4's group rule with a slack
+widened to the expansion's rounding.
 """
 from __future__ import annotations
 
@@ -257,16 +259,38 @@ def marglik_bwd_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
     return (mask > 0.5)[:, None, :] & zero
 
 
-def _zero_weight(chi2, logw, outp, scale):
+def _zero_weight(chi2, logw, outp, scale, rel=_SKIP_REL):
     """True where a softmax weight whose chi2 is at least `chi2` is
-    certain to be 0.0: the bound on its log, with `scale` the magnitudes
-    that cancel in chi2, lies below _SKIP_BELOW."""
-    slack = _SKIP_REL * scale
+    certain to be 0.0: the bound on its log, with a slack of `rel` times
+    `scale`, the magnitudes that cancel in chi2, lies below _SKIP_BELOW."""
+    slack = rel * scale
     return -0.5 * chi2 + logw - outp + _SKIP_LOG_WIDTH + slack < _SKIP_BELOW
 
 
 # Segments per group of kernel 4's group rule: the 32 lanes of one warp.
 SKIP_GROUP = 32
+
+
+def _group_ranges(lo, hi, logw, mask):
+    """Per (chain, group of SKIP_GROUP segments): the least and the largest
+    of the live segments' lo and hi in each band, mn and mx [C, 1, G, B]
+    (+inf and -inf where no segment is live), and their largest logw mlw
+    [C, 1, G] (-inf there)."""
+    C, T, B = lo.shape
+    G = -(-T // SKIP_GROUP)
+    pad = G * SKIP_GROUP - T
+    live = mask > 0.5
+    inf = torch.full_like(lo, torch.inf)
+    mn = torch.where(live[..., None], torch.minimum(lo, hi), inf)
+    mx = torch.where(live[..., None], torch.maximum(lo, hi), -inf)
+    mn = torch.nn.functional.pad(mn, (0, 0, 0, pad), value=torch.inf)
+    mx = torch.nn.functional.pad(mx, (0, 0, 0, pad), value=-torch.inf)
+    mn = mn.reshape(C, G, SKIP_GROUP, B).amin(2)[:, None]     # [C, 1, G, B]
+    mx = mx.reshape(C, G, SKIP_GROUP, B).amax(2)[:, None]
+    lw = torch.where(live, logw, torch.full_like(logw, -torch.inf))
+    lw = torch.nn.functional.pad(lw, (0, pad), value=-torch.inf)
+    mlw = lw.reshape(C, G, SKIP_GROUP).amax(2)[:, None]       # [C, 1, G]
+    return mn, mx, mlw
 
 
 def marglik_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
@@ -285,21 +309,10 @@ def marglik_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
     logw and (Gm, Bt, A) in the slack.  A group with no live segment gives
     NaN and is never marked.  The bands are summed in order, so that
     csrc/marglik.cu can repeat these float32 operations exactly."""
-    C, T, B = lo.shape
-    G = -(-T // SKIP_GROUP)
-    pad = G * SKIP_GROUP - T
-    live = mask > 0.5
-    inf = torch.full_like(lo, torch.inf)
-    mn = torch.where(live[..., None], torch.minimum(lo, hi), inf)
-    mx = torch.where(live[..., None], torch.maximum(lo, hi), -inf)
-    mn = torch.nn.functional.pad(mn, (0, 0, 0, pad), value=torch.inf)
-    mx = torch.nn.functional.pad(mx, (0, 0, 0, pad), value=-torch.inf)
-    mn = mn.reshape(C, G, SKIP_GROUP, B).amin(2)[:, None]     # [C, 1, G, B]
-    mx = mx.reshape(C, G, SKIP_GROUP, B).amax(2)[:, None]
-    lw = torch.where(live, logw, torch.full_like(logw, -torch.inf))
-    lw = torch.nn.functional.pad(lw, (0, pad), value=-torch.inf)
-    mlw = lw.reshape(C, G, SKIP_GROUP).amax(2)[:, None]       # [C, 1, G]
-    lb = gm = bt = a = lo.new_zeros((C, obs.shape[0], G))
+    B = lo.shape[2]
+    mn, mx, mlw = _group_ranges(lo, hi, logw, mask)
+    lb = gm = bt = a = lo.new_zeros((lo.shape[0], obs.shape[0],
+                                     mlw.shape[2]))
     for b in range(B):
         o = obs[None, :, None, b]                              # [1, S, 1]
         w = inv_var[None, :, None, b]
@@ -313,6 +326,48 @@ def marglik_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
         a = a + w * width * width
     return _zero_weight(lb, mlw, (out - log_norm)[:, :, None],
                         gm + 2.0 * bt + a)
+
+
+# Kernel 4m's group rule (below): alpha, beta and gamma of the matmul form
+# are FMA chains over the expanded products, one a band, so each sits within
+# (B + 3) units of 2^-24 of sum_b iv (|o| + |lo| + |d|)^2 from its exact
+# value (the products c0, iv obs lo, iv lo^2, ... cancel down to chi2), and
+# chi2's on-segment minimum moves at most |d alpha| + 2 |d beta| + |d gamma|.
+# Half that in log units; the rule takes (B + 8) units, besides _SKIP_REL.
+_MM_SKIP_ULPS = 8
+_ULP = 2.0 ** -24
+
+
+def marglik_mm_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask,
+                              out):
+    """Kernel 4m's group rule: bool [C, S, ceil(T / SKIP_GROUP)], True where
+    every element of the (chain, star, group of SKIP_GROUP segments) is
+    certain to have an exact 0.0 softmax weight in marglik_mm_bwd_plain,
+    found before any band contraction.  `obs`, `lo` and `hi` as the
+    kernel takes them (centered: `center_bands`).
+
+    marglik_bwd_group_skip's bound lb on chi2, with the slack widened to
+    the expansion's rounding: E = sum_b iv (|o| + L + W)^2, with L =
+    max(|mn|, |mx|) >= |lo| and W = mx - mn >= |d| on the group's live
+    segments, bounds the magnitudes of every expanded product (and the
+    residual form's Gm + 2 Bt + A), and the slack is (_SKIP_REL + (B +
+    _MM_SKIP_ULPS) 2^-24) E.  A group with no live segment gives NaN and is
+    never marked.  The bands are summed in order, so that
+    csrc/marglik_mm.cu can repeat these float32 operations exactly."""
+    B = lo.shape[2]
+    mn, mx, mlw = _group_ranges(lo, hi, logw, mask)
+    lb = e = lo.new_zeros((lo.shape[0], obs.shape[0], mlw.shape[2]))
+    for b in range(B):
+        o = obs[None, :, None, b]                              # [1, S, 1]
+        w = inv_var[None, :, None, b]
+        lo_b, hi_b = mn[..., b], mx[..., b]
+        dist = torch.maximum(lo_b - o, o - hi_b).clamp_min(0.0)
+        span = o.abs() + torch.maximum(lo_b.abs(), hi_b.abs()) \
+            + (hi_b - lo_b)
+        lb = lb + w * dist * dist
+        e = e + w * span * span
+    return _zero_weight(lb, mlw, (out - log_norm)[:, :, None], e,
+                        rel=_SKIP_REL + (B + _MM_SKIP_ULPS) * _ULP)
 
 
 _NAMES = ("obs", "inv_var", "log_norm", "lo", "hi", "logw", "maskf")
@@ -330,10 +385,12 @@ def _checked(args):
     return C, S, T, B
 
 
-def _launch_fwd(symbol, args):
+def _launch_fwd(symbol, args, scratch=None):
     C, S, T, B = _checked(args)
     out = torch.empty((C, S), dtype=torch.float32, device=args[0].device)
-    build.launch(symbol, [*args, out], (C, S, T, B))
+    extra = [] if scratch is None else [torch.empty(
+        scratch(C, S, T), dtype=torch.float32, device=args[0].device)]
+    build.launch(symbol, [*args, out, *extra], (C, S, T, B))
     return out
 
 
@@ -367,10 +424,14 @@ def marglik_bwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf, out, g):
 
 
 def marglik_mm_fwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf):
-    """Kernel 3m on the card: [C, S] as marglik_mm_fwd_plain."""
+    """Kernel 3m on the card: [C, S] as marglik_mm_fwd_plain.  Where the
+    kernel splits the segments into chunks, the call is two CUDA launches
+    (the chunks, then their merge in chunk order), counted as one launch of
+    kernel 3m."""
     global marglik_mm_fwd_launches
     out = _launch_fwd("btt_marglik_mm_fwd",
-                      (obs, inv_var, log_norm, lo, hi, logw, maskf))
+                      (obs, inv_var, log_norm, lo, hi, logw, maskf),
+                      scratch=build.marglik_mm_fwd_scratch)
     marglik_mm_fwd_launches += 1
     return out
 

@@ -2296,20 +2296,78 @@ def check_native_io(table_path: str, out_path: str) -> dict:
     return res
 
 
+def mm_skip_shares(marg_in) -> dict | None:
+    """Kernel 4m's group rule (ops.marglik.marglik_mm_bwd_group_skip) on
+    these inputs, centered as the kernel takes them: the (chain, star,
+    32-segment group)s with a live segment (`pairs`) and those the rule
+    marks; the live elements of the pairs it keeps (`kept`: the full path)
+    and of the pairs holding a non-zero weight of marglik_mm_bwd_plain
+    (`nonzero`: the star-axis products).  Raises if a marked pair holds a
+    non-zero weight.  None for a checkout without the rule."""
+    from base_tpu_torch.ops import marglik as ml
+
+    if not hasattr(ml, "marglik_mm_bwd_group_skip"):
+        return None
+    obs, lo, hi = ml.center_bands(marg_in[0], marg_in[1], marg_in[3],
+                                  marg_in[4])
+    cent = (obs, marg_in[1], marg_in[2], lo, hi, *marg_in[5:])
+    S, B = obs.shape
+    C, T = lo.shape[:2]
+    step = max(1, 2**26 // (S * T * B))   # the float64 FMA emulation
+    n = dict(pairs=0, marked=0, kept=0, nonzero=0, misses=0, live=0)
+    for c0 in range(0, C, step):
+        blk = cent[:3] + tuple(t[c0:c0 + step] for t in cent[3:])
+        out = ml.marglik_mm_fwd_plain(*blk)
+        marked = ml.marglik_mm_bwd_group_skip(*blk, out)
+        gw = ml._cotangent_weights(
+            *ml._abg_mm(blk[0], blk[1], blk[3], blk[4]), blk[2], blk[5],
+            blk[6], out, torch.ones_like(out))[0]
+        Cb, G = marked.shape[0], marked.shape[2]
+        pad = G * 32 - T
+        live = torch.nn.functional.pad(blk[6] > 0.5, (0, pad)) \
+            .reshape(Cb, 1, G, 32).expand(Cb, S, G, 32)
+        nz = torch.nn.functional.pad(gw != 0.0, (0, pad)) \
+            .reshape(Cb, S, G, 32).any(-1)
+        per_pair = live.sum(-1)                       # live elements
+        n["live"] += int(per_pair.sum())
+        n["pairs"] += int((per_pair > 0).sum())
+        n["marked"] += int(marked.sum())
+        n["kept"] += int(per_pair[~marked].sum())
+        n["nonzero"] += int(per_pair[nz].sum())
+        n["misses"] += int((marked & nz).sum())
+    if n["misses"]:
+        raise AssertionError(f"13c: kernel 4m's group rule marks "
+                             f"{n['misses']} pairs holding a non-zero weight")
+    return dict(n, group_rule_share=n["marked"] / max(n["pairs"], 1),
+                kept_share=n["kept"] / max(n["live"], 1),
+                nonzero_share=n["nonzero"] / max(n["live"], 1))
+
+
 def marglik_mm_work(marg_in) -> dict:
-    """{kernel: (flops, bytes)} of kernels 3m and 4m (see kernel_work).
-    Per live element, 3m: the five expanded products 10B, gamma's assembly
-    4, core_width and the online update ~105; 4m: the products again,
-    core_width, the moments and weight ~38 and the five star-axis products
-    10B; per (segment, band) the assembly of dlo and dhi, 14.  No skip
-    rule: every live element costs the full path.  Bytes as kernels 3-4."""
+    """{kernel: (flops, bytes)} of kernels 3m and 4m (see kernel_work),
+    with 4m's dense count and its skip shares (mm_skip_shares).  Per live
+    element, 3m: the five expanded products 10B, gamma's assembly 4,
+    core_width and the online update ~105.  4m: per (group, star) pair with
+    a live segment, the group rule and c0, 15B + 10; per live element of
+    the pairs it keeps, the products again, core_width, the moments and
+    weight, 10B + 147; per live element of a pair with a non-zero weight,
+    the five star-axis products, 10B; per (segment, band) the assembly of
+    dlo and dhi, 14.  `marglik_mm_bwd_dense`: every live element at the
+    full path, 20B + 147, PR 8's count (its kernel had no skip).  Bytes as
+    kernels 3-4."""
     B = marg_in[0].shape[1]
     C, T = marg_in[3].shape[:2]
     live, fwd_bytes, bwd_bytes = _marglik_sizes(marg_in)
+    skips = mm_skip_shares(marg_in)
+    dense = live * (20 * B + 147) + 14 * C * T * B
     return {
         "marglik_mm_fwd": (live * (10 * B + 109), fwd_bytes),
-        "marglik_mm_bwd": (live * (20 * B + 147) + 14 * C * T * B,
-                           bwd_bytes),
+        "marglik_mm_bwd": ((skips["pairs"] * (15 * B + 10)
+                            + skips["kept"] * (10 * B + 147)
+                            + skips["nonzero"] * 10 * B + 14 * C * T * B)
+                           if skips else dense, bwd_bytes),
+        "marglik_mm_bwd_dense": (dense, bwd_bytes),
+        "marglik_mm_bwd_skip": skips,
     }
 
 
@@ -2430,6 +2488,9 @@ def time_mm(marg_in) -> dict:
         res[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev,
                          bound_ms=bound_ms, bound_by=by,
                          roofline_share=bound_ms / dev)
+        if name in ("marglik_bwd", "marglik_mm_bwd"):
+            res[name].update(bound_ms_dense=bound(*work[f"{name}_dense"])[0],
+                             skip=work[f"{name}_skip"])
     return res
 
 
@@ -2585,6 +2646,10 @@ def run_wide(dev, bench) -> dict:
             f"{k} {v['device_ms']:.5f} (bound {v['bound_ms']:.5f} by "
             f"{v['bound_by']}, share {v['roofline_share']:.3f})"
             for k, v in t.items()))
+        mm = t["marglik_mm_bwd"]
+        log(f"  [{label}] 4m's group rule {json.dumps(mm['skip'])}; bound "
+            f"with every live element at full cost "
+            f"{mm['bound_ms_dense']:.5f} ms")
     res["tool_wall_s"] = walls
     return res
 
@@ -3161,6 +3226,9 @@ def main() -> None:
             ms=t8["ms"], plain_ms=t8["plain_ms"], bound_ms=t8["bound_ms"],
             bound_by=t8["bound_by"], library_ms=None,
             roofline_share=t8["roofline_share"], device_ms=t8["device_ms"],
+            # 4m: the bound over every live element (PR 8's count, its
+            # kernel had no skip) and its group rule's shares.
+            **{k: t8[k] for k in ("bound_ms_dense", "skip") if k in t8},
             b29=wide["mm_times"]["b29"][name]))
         if not all(math.isfinite(v) for k, v in kernels[-1].items()
                    if k.startswith(("ms", "plain_ms", "bound_ms",

@@ -606,29 +606,84 @@ def _check_own_outputs(args, g, kernels, plains):
         assert float((a.double() - w).abs().max()) / scale <= MARGLIK_TOL
 
 
-def _mm_inputs(dev, B, S=150, T=700, seed=1):
+def _mm_inputs(dev, B, S=150, T=700, seed=1, C=3):
     """Kernel 3m/4m inputs: _marglik_inputs centered per band, as
     fused_log_marginals(..., matmul=True) passes them."""
-    args = _marglik_inputs(dev, S=S, T=T, B=B, seed=B + seed, near=True)
+    args = _marglik_inputs(dev, C=C, S=S, T=T, B=B, seed=B + seed, near=True)
     obs, lo, hi = ml.center_bands(args[0], args[1], args[3], args[4])
     return (obs, args[1], args[2], lo, hi, args[5], args[6])
 
 
-@pytest.mark.parametrize("seed", [1, 2, 3])
+def _mm_far_inputs(dev, B, seed=1, C=3, S=150, T=700):
+    """Centered kernel 3m/4m inputs on ordered tables (a magnitude ramp
+    along the segments, as an isochrone's), with stars 64-127 (kernel
+    4m's second star tile) near the first tenth of the segments: for most
+    groups of 32 segments the rule marks that whole tile, so 4m's blocks
+    skip it."""
+    rng = np.random.default_rng(B + seed)
+    ramp = 12.0 + 6.0 * np.arange(T)[:, None] / T + np.linspace(0, 1, B)
+    lo = ramp[None] + rng.normal(0, 0.02, (C, T, B))
+    hi = lo + 6.0 / T + rng.normal(0, 0.005, (C, T, B))
+    pick = rng.integers(0, T, S)
+    pick[64:128] = rng.integers(0, T // 10, 64)
+    obs = lo[0, pick] + rng.normal(0, 0.05, (S, B))
+    sig = np.abs(rng.normal(0.05, 0.02, (S, B))) + 0.01
+    iv = np.where(rng.random((S, B)) < 0.1, 0.0, 1.0 / sig**2)
+    ln = (-np.log(sig) - 0.9189385332046727).sum(-1)
+    logw = rng.normal(-2.0, 1.0, (C, T))
+    mask = (rng.random((C, T)) > 0.15).astype(np.float32)
+    args = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            for a in (obs, iv, ln, lo, hi, logw, mask)]
+    obs, lo, hi = ml.center_bands(args[0], args[1], args[3], args[4])
+    return (obs, args[1], args[2], lo, hi, args[5], args[6])
+
+
+def _mm_case(dev, B, case, seed):
+    """The inputs of test_mm_kernels_match_plain's cases: `base` (C 3, S
+    150, T 700; 16 and 64, the kernels' star tiles, do not divide S);
+    `one_chunk` (S 37, T 100: kernel 3m's segments in one chunk of one
+    partial tile, no merge launch); `many_chunks` (T 1500: 12 chunks, the
+    last partial); `long_chunks` (C 64: chunks of 3 tiles, the last
+    partial); `masked` (every chain's segments 32-63, a whole group of
+    4m, masked, and chain 1 entirely); `far` (_mm_far_inputs)."""
+    if case == "far":
+        return _mm_far_inputs(dev, B, seed)
+    shape = dict(base=(3, 150, 700), one_chunk=(3, 37, 100),
+                 many_chunks=(3, 150, 1500), long_chunks=(64, 150, 700),
+                 masked=(3, 150, 700))[case]
+    C, S, T = shape
+    args = list(_mm_inputs(dev, B, S=S, T=T, seed=seed, C=C))
+    if case == "masked":
+        args[6] = args[6].clone()
+        args[6][:, 32:64] = 0.0
+        args[6][1] = 0.0
+    return tuple(args)
+
+
+MM_CASES = [("base", 1), ("base", 2), ("base", 3), ("one_chunk", 1),
+            ("many_chunks", 1), ("long_chunks", 1), ("masked", 1),
+            ("far", 1)]
+
+
+@pytest.mark.parametrize("case,seed", MM_CASES)
 @pytest.mark.parametrize("B", [8, 29])
-def test_mm_kernels_match_plain(cuda, B, seed):
+def test_mm_kernels_match_plain(cuda, B, case, seed):
     """Kernels 3m and 4m against their plain versions, which sum the
     expanded products in the kernels' order with their rounding: forward
     abs and backward scaled error within MARGLIK_TOL, each backward on its
     own forward's output, as kernels 3 and 4 are held to theirs.  Kernel 3
     on the same inputs (the residual form) is the control the forward gate
-    must refuse: the expansion's float32 cancellation puts it 2e-2 (B = 8)
-    to 1.2e-1 (B = 29) from the plain version on these inputs.  Against the
-    float64 residual form each kernel is held to twice the plain version's
-    own distance from it, plus 1e-4 (forward) or MARGLIK_TOL (backward), as
-    chip_smoke.py phase 13c holds them."""
-    args = _mm_inputs(cuda, B, seed=seed)
-    g = _randn((3, 150), cuda, seed)
+    must refuse: the expansion's float32 cancellation puts it 6e-3 to 5e-2
+    (B = 8) and 4e-2 to 1.6e-1 (B = 29) from the plain version on these
+    inputs.  Against the float64 residual form each kernel is held to twice
+    the plain version's own distance from it, plus 1e-4 (forward) or
+    MARGLIK_TOL (backward), as chip_smoke.py phase 13c holds them.  The
+    cases cover the new designs' edges (_mm_case); in `far`, kernel 4m's
+    rule marks whole star tiles, and in `masked` a whole group and a whole
+    chain get exact zeros."""
+    args = _mm_case(cuda, B, case, seed)
+    C, S = args[3].shape[0], args[0].shape[0]
+    g = _randn((C, S), cuda, seed)
     args64 = tuple(t.double() for t in args)
     ref = ml.marglik_fwd_plain(*args64)
     plain = ml.marglik_mm_fwd_plain(*args)
@@ -641,14 +696,21 @@ def test_mm_kernels_match_plain(cuda, B, seed):
     assert dist(got, plain) <= MARGLIK_TOL
     assert dist(ml.marglik_fwd_cuda(*args), plain) > MARGLIK_TOL
     assert dist(got, ref) <= 2.0 * dist(plain, ref) + 1e-4
-    for a, p, w in zip(ml.marglik_mm_bwd_cuda(*args, got, g),
-                       ml.marglik_mm_bwd_plain(*args, plain, g),
+    grads = ml.marglik_mm_bwd_cuda(*args, got, g)
+    for a, p, w in zip(grads, ml.marglik_mm_bwd_plain(*args, plain, g),
                        ml.marglik_bwd_plain(*args64, ref, g.double())):
         scale = float(w.abs().max()) + 1e-30
         assert float((a - p).abs().max()) / scale <= MARGLIK_TOL
         budget = 2.0 * float((p.double() - w).abs().max()) / scale \
             + MARGLIK_TOL
         assert float((a.double() - w).abs().max()) / scale <= budget
+    if case == "masked":
+        assert bool((got[1] == ml.NEG_INF + args[2]).all())
+        assert all(bool((x[1] == 0).all()) and bool((x[0, 32:64] == 0).all())
+                   for x in grads)
+    if case == "far":
+        marked = ml.marglik_mm_bwd_group_skip(*args, got)
+        assert int(marked[:, 64:128].all(1).sum()) > marked.shape[0]
 
 
 def test_mm_kernels_deterministic_counted_and_autograd(cuda):

@@ -30,6 +30,7 @@ The workers import no JAX: the JAX imports stay inside the parent's
 fixtures and tests.
 """
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -169,14 +170,10 @@ def _value_grad(model, mesh, pts):
     return v.detach(), g
 
 
-def _samplers(model, mesh, d):
-    """(d), (e) and (g) at mesh (2, 2)."""
-    from base_tpu_torch.inference import hmc, mh, nuts, smc, vi
-    from base_tpu_torch.inference.driver import DriverConfig
+def _sampler_start(model):
+    """(transform, z0 at the truth, init(seed) [N_CHAINS, 9], gen(seed))."""
     from base_tpu_torch.model import posterior as post
-    from base_tpu_torch.parallel import run as prun
 
-    out = {}
     tr = post.default_transform(model)
     z0 = tr.inverse(torch.from_numpy(TRUTH))
 
@@ -187,14 +184,17 @@ def _samplers(model, mesh, d):
     def gen(seed):
         return torch.Generator().manual_seed(seed)
 
-    prun.reset_counts()
-    cfg = hmc.HMCConfig(n_warmup=50, n_samples=50, l_max=6, n_windows=2)
-    zs, info = prun.run_hmc_sharded(model, tr, init(8), gen(9), cfg, mesh)
-    out["hmc"] = dict(zs=zs, logposts=info["logposts"],
-                      step_size=info["step_size"],
-                      accept=info["accept_prob"],
-                      calls=prun.density_calls)
+    return tr, z0, init, gen
 
+
+def _samplers_a(model, mesh, d):
+    """(d) and (e) at mesh (2, 2): MH (with and without a burn-in model),
+    NUTS and SMC."""
+    from base_tpu_torch.inference import mh, nuts, smc
+    from base_tpu_torch.parallel import run as prun
+
+    out = {}
+    tr, z0, init, gen = _sampler_start(model)
     step0 = torch.tensor([0.05, 0.02, 0.05, 0.05, 0.03, 0, 0, 0, 0])
     x0 = torch.from_numpy(np.tile(TRUTH, (N_CHAINS, 1)))
     xs, info = prun.run_mh_sharded(
@@ -232,6 +232,26 @@ def _samplers(model, mesh, d):
         smc.SMCConfig(n_particles=32, n_move=2, max_stages=16), mesh,
         q0_sd=0.3, n_rep=2)
     out["smc_rep"] = dict(particles=particles, **info)
+    return out
+
+
+def _samplers_b(model, mesh, d):
+    """(d), (e) and (g) at mesh (2, 2): HMC, VI and the sharded
+    checkpointed HMC interrupted and resumed."""
+    from base_tpu_torch.inference import hmc
+    from base_tpu_torch.inference.driver import DriverConfig
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.parallel import run as prun
+
+    out = {}
+    tr, z0, init, gen = _sampler_start(model)
+    prun.reset_counts()
+    cfg = hmc.HMCConfig(n_warmup=50, n_samples=50, l_max=6, n_windows=2)
+    zs, info = prun.run_hmc_sharded(model, tr, init(8), gen(9), cfg, mesh)
+    out["hmc"] = dict(zs=zs, logposts=info["logposts"],
+                      step_size=info["step_size"],
+                      accept=info["accept_prob"],
+                      calls=prun.density_calls)
 
     res = prun.run_vi_sharded(model, tr, z0, gen(31), VI_CFG, mesh)
     draws, cov, _ = prun.vi_warm_start_sharded(
@@ -268,46 +288,92 @@ def _samplers(model, mesh, d):
     return out
 
 
-def _world(rank, d):
-    """One rank of the spawned world (torch.multiprocessing's entry)."""
+# The two worlds' shares of the cases, balanced by time (~25 s each on one
+# CPU thread a rank): the densities, pooled statistics, MH, NUTS and SMC;
+# HMC, VI and the checkpointed HMC.
+WORLD_PARTS = (_samplers_a, _samplers_b)
+
+
+def _world(rank, d, part):
+    """One rank of world `part` (torch.multiprocessing's entry)."""
     torch.set_num_threads(1)
     from base_tpu_torch.parallel import comm, distributed
     from base_tpu_torch.parallel.mesh import make_mesh
 
-    distributed.initialize("cpu", init_method=f"file://{d}/store",
+    distributed.initialize("cpu", init_method=f"file://{d}/store{part}",
                            world_size=WORLD, rank=rank, local_rank=rank,
                            local_world_size=WORLD, timeout_s=120)
     try:
-        inp = torch.load(f"{d}/inputs.pt", weights_only=False)
-        models = dict(single=_port_model(inp),
-                      multi=_port_model(inp, "multi"), wd=_wd_model(inp))
+        inputs = f"{d}/inputs.pt"      # the parent writes it meanwhile
+        deadline = time.monotonic() + WORLD_DEADLINE_S
+        while not os.path.exists(inputs) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        inp = torch.load(inputs, weights_only=False)
         out = {}
-        for shape in DENSITY_MESHES:
-            mesh = make_mesh(*shape)
-            for kind, model in models.items():
-                out["density", kind, shape] = _value_grad(
-                    model, mesh, _density_points(kind))
-            enter = comm.enter
-            comm.enter = lambda x, group: x    # a plain forward all-reduce
-            try:
-                out["plain_allreduce", shape] = _value_grad(
-                    models["single"], mesh, _density_points("single"))
-            finally:
-                comm.enter = enter
-        mesh = make_mesh(WORLD, 1)
-        out["pooled"] = _pooled(mesh.chain_group, mesh.chain_block)
-        out.update(_samplers(models["single"], make_mesh(2, 2), d))
-        torch.save(out, f"{d}/rank{rank}.pt")
+        if part == 0:
+            models = dict(single=_port_model(inp),
+                          multi=_port_model(inp, "multi"),
+                          wd=_wd_model(inp))
+            for shape in DENSITY_MESHES:
+                mesh = make_mesh(*shape)
+                for kind, model in models.items():
+                    out["density", kind, shape] = _value_grad(
+                        model, mesh, _density_points(kind))
+                enter = comm.enter
+                comm.enter = lambda x, group: x   # a plain forward all-reduce
+                try:
+                    out["plain_allreduce", shape] = _value_grad(
+                        models["single"], mesh, _density_points("single"))
+                finally:
+                    comm.enter = enter
+            mesh = make_mesh(WORLD, 1)
+            out["pooled"] = _pooled(mesh.chain_group, mesh.chain_block)
+        out.update(WORLD_PARTS[part](_port_model(inp), make_mesh(2, 2), d))
+        torch.save(out, f"{d}/rank{rank}.part{part}.pt")
     finally:
         distributed.shutdown()
 
 
 # ---- the parent ------------------------------------------------------------
 
+class _Ranks:
+    """The spawned worlds' results: each rank's dict (its two worlds'
+    shares merged), waited for on first use, so that the parent's own JAX
+    work runs while the worlds do."""
+
+    def __init__(self, d, ctxs):
+        self.d, self.ctxs = d, ctxs
+        self.deadline = time.monotonic() + WORLD_DEADLINE_S
+        self._ranks = None
+
+    def _join(self):
+        if self._ranks is None:
+            for ctx in self.ctxs:
+                while not ctx.join(timeout=5):
+                    if time.monotonic() > self.deadline:
+                        for p in (p for c in self.ctxs for p in c.processes):
+                            p.kill()
+                        pytest.fail(f"the spawned worlds ran past "
+                                    f"{WORLD_DEADLINE_S} s")
+            self._ranks = [
+                {k: v for part in range(len(WORLD_PARTS))
+                 for k, v in torch.load(self.d / f"rank{r}.part{part}.pt",
+                                        weights_only=False).items()}
+                for r in range(WORLD)]
+        return self._ranks
+
+    def __getitem__(self, i):
+        return self._join()[i]
+
+    def __iter__(self):
+        return iter(self._join())
+
+
 @pytest.fixture(scope="module")
 def world(small_grid, tmp_path_factory):
     """base_tpu's cluster_model, the port's inputs from it, and the
-    results of the spawned world's 4 ranks."""
+    results of the spawned worlds' 4 ranks (_Ranks).  The worlds start
+    first and wait for the inputs file."""
     import jax
     import jax.numpy as jnp
     import torch.multiprocessing as tmp
@@ -319,6 +385,9 @@ def world(small_grid, tmp_path_factory):
     from base_tpu_torch.tools import main as tmain
 
     d = tmp_path_factory.mktemp("torch_parallel")
+    ctxs = [tmp.start_processes(_world, args=(str(d), part), nprocs=WORLD,
+                                start_method="spawn", join=False)
+            for part in range(len(WORLD_PARTS))]
     cat = simulate_cluster(small_grid, jnp.asarray(TRUTH), 50,
                            jax.random.PRNGKey(21), percent_binary=0.0)
     sc = scatter_cluster(cat.mags, jax.random.PRNGKey(22), limit_mag=24.0)
@@ -336,18 +405,9 @@ def world(small_grid, tmp_path_factory):
     inp = dict(grid=_fields(small_grid), stars=_fields(jm.stars),
                use_pallas=bool(jm.use_pallas), wd_config=str(cfg),
                wd_phot=str(d / "wd.phot"))
-    torch.save(inp, d / "inputs.pt")
-    ctx = tmp.start_processes(_world, args=(str(d),), nprocs=WORLD,
-                              start_method="spawn", join=False)
-    deadline = time.monotonic() + WORLD_DEADLINE_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            pytest.fail(f"the spawned world ran past {WORLD_DEADLINE_S} s")
-    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
-             for r in range(WORLD)]
-    return jm, inp, ranks
+    torch.save(inp, d / "inputs.tmp")
+    os.replace(d / "inputs.tmp", d / "inputs.pt")   # whole, or not there
+    return jm, inp, _Ranks(d, ctxs)
 
 
 def _unsharded(inp, kind):
