@@ -52,12 +52,30 @@ class StarStatus(enum.IntEnum):
     DNE = 9
 
 
+class WdType(enum.IntEnum):
+    """White-dwarf atmosphere type (hydrogen DA vs helium DB)."""
+
+    DA = 0
+    DB = 1
+
+
+# Zero-point conversion mag <-> flux:  f = 10^(-0.4 m)
+MAG_FLUX_COEF = -0.4
+
+# log10(e), used to convert natural-log densities to mag-space.
+LOG10_E = 0.43429448190325176
+
 # Solar bolometric magnitude (toy WD atmospheres, grids/wd_atmosphere.py).
 MBOL_SUN = 4.75
+
+# Reference epsilon guarding divisions in interpolation weights.
+EPS = 1e-12
 
 # Lognormal IMF prior on primary mass: log10(M/Msun) ~ N(mean, sigma^2).
 IMF_LOG_MEAN = -1.02
 IMF_LOG_SIGMA = 0.677
 
+# Minimum stellar mass considered anywhere (Msun).
+MIN_MASS = 0.1
 # Maximum ZAMS mass of a WD precursor (above this: NS/BH, zero likelihood).
 MAX_WD_PRECURSOR_MASS = 8.0

@@ -2,9 +2,10 @@
 (port of base_tpu.inference.hmc).
 
 The chain axis is written out: every state tensor has a leading axis C and
-one call of the density evaluates all chains, `[C, P] -> [C]`.  The
-leapfrog is a Python loop over `l_max` steps on that batch, and gradients
-come from `torch.autograd.grad(lp.sum(), z)`, valid because the chains are
+one call of the density evaluates all chains, `[C, P] -> [C]` (or, with
+`chain_chunk`, one call per block of that many chains).  The leapfrog
+is a Python loop over `l_max` steps on that batch, and gradients come from
+`torch.autograd.grad(lp.sum(), z)`, valid because the chains are
 independent.  Warmup runs in windows: per-chain Nesterov dual averaging
 toward the target acceptance, and between windows a (dense or diagonal)
 mass matrix re-estimated from the samples POOLED over chains.  Randomness
@@ -45,10 +46,16 @@ class HMCConfig:
     #   "step":   all l_max steps used, eps scaled by U(0.8, 1.2) per
     #             trajectory;
     #   "none":   fixed length and step.
+    jitter_traj: bool = True     # legacy switch: False forces "none"
     jitter_mode: str = "length"  # length | step | none
     dense_mass: bool = False     # full [P,P] mass matrix (pooled covariance)
     # Pinned parameters: 1.0 = sampled, 0.0 = frozen.
     free_mask: tuple | None = None
+    # Max chains in one density call (value_and_grad).  None = all at
+    # once.  Blocks of chain_chunk rows run one after another, so peak
+    # memory is one block's graph; cross-chain pooling (metric and eps,
+    # between windows on the collected [C, n, P] samples) is unchanged.
+    chain_chunk: int | None = None
 
     def __post_init__(self):
         if self.jitter_mode not in ("length", "step", "none"):
@@ -140,15 +147,42 @@ class HMCChainState(NamedTuple):
     da: DAState
 
 
-def value_and_grad(logpost_fn: Callable) -> Callable:
-    """z [C, P] -> (logpost [C], d logpost / dz [C, P]), both detached."""
+def chain_blocks(C: int, chunk: int | None) -> int:
+    """The number of density calls value_and_grad makes for C rows:
+    C // chunk, or 1 when chunk is None, >= C or does not divide C
+    (base_tpu's _vmap_chains rule)."""
+    if chunk is None or chunk >= C or C % chunk != 0:
+        return 1
+    return C // chunk
 
-    def vg(z: torch.Tensor):
+
+def value_and_grad(logpost_fn: Callable,
+                   chunk: int | None = None) -> Callable:
+    """z [C, P] -> (logpost [C], d logpost / dz [C, P]), both detached.
+
+    With `chunk` (the config's chain_chunk) the rows go to logpost_fn in
+    chain_blocks(C, chunk) blocks of `chunk` rows, each block's forward
+    and gradient before the next one's, so peak memory is one block's
+    graph; the outputs are the blocks' concatenated.  Every kernel of the
+    density then launches once per block.  On a mesh C is the rank's
+    local chain count, equal on every rank of a star group, so a
+    star-sharded density makes the same one all-reduce per block on each
+    of them and the ranks stay in step."""
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chain_chunk must be None or >= 1 (got {chunk!r})")
+
+    def one(z: torch.Tensor):
         with torch.enable_grad():
             zz = z.detach().requires_grad_(True)
             lp = logpost_fn(zz)
             (g,) = torch.autograd.grad(lp.sum(), zz)
         return lp.detach(), g
+
+    def vg(z: torch.Tensor):
+        if chain_blocks(z.shape[0], chunk) == 1:
+            return one(z)
+        lps, gs = zip(*(one(b) for b in z.split(chunk)))
+        return torch.cat(lps), torch.cat(gs)
 
     return vg
 
@@ -180,7 +214,7 @@ def _leapfrog(vgrad, z, p, grad, eps, inv_mass, n_steps, l_max, mask):
 
 
 def hmc_transition(
-    vgrad: Callable,
+    logpost_and_grad: Callable,
     state: HMCChainState,
     eps: torch.Tensor,
     inv_mass: torch.Tensor,
@@ -190,7 +224,8 @@ def hmc_transition(
 ) -> tuple[HMCChainState, torch.Tensor]:
     """One HMC proposal + MH correction for every chain; eps is [C] or a
     scalar.  Returns (state, accept_prob [C]).  Draws, in order: momenta
-    [C, P], the jitter [C] (unless mode "none"), the accept uniforms [C]."""
+    [C, P], the jitter [C] (unless mode "none", or jitter_traj False), the
+    accept uniforms [C]."""
     C, P = state.z.shape
     dev = state.z.device
     mask = cfg.mask_array(P, dev)
@@ -199,13 +234,14 @@ def hmc_transition(
     eps = torch.broadcast_to(torch.as_tensor(eps, device=dev), (C,))
     p0 = _sample_momentum(gen, chol, C, P) * mask
     n_steps = None  # every chain runs all l_max steps
-    if cfg.jitter_mode == "length":
+    mode = cfg.jitter_mode if cfg.jitter_traj else "none"
+    if mode == "length":
         u = 0.5 + 0.5 * torch.rand(C, generator=gen, device=dev)
         n_steps = torch.ceil(u * cfg.l_max).to(torch.int32)
-    elif cfg.jitter_mode == "step":
+    elif mode == "step":
         eps = eps * (0.8 + 0.4 * torch.rand(C, generator=gen, device=dev))
-    z1, p1, lp1, g1 = _leapfrog(vgrad, state.z, p0, state.grad, eps,
-                                inv_mass, n_steps, cfg.l_max, mask)
+    z1, p1, lp1, g1 = _leapfrog(logpost_and_grad, state.z, p0, state.grad,
+                                eps, inv_mass, n_steps, cfg.l_max, mask)
     ke0 = _kinetic(inv_mass, p0)
     ke1 = _kinetic(inv_mass, p1)
     log_ratio = (lp1 - ke1) - (state.logpost - ke0)
@@ -267,7 +303,7 @@ def init_chains(logpost_fn: Callable, init_z: torch.Tensor,
                 cfg: HMCConfig) -> HMCChainState:
     """Initial state of every chain (leading axis C)."""
     C, _ = init_z.shape
-    lp0, g0 = value_and_grad(logpost_fn)(init_z)
+    lp0, g0 = value_and_grad(logpost_fn, cfg.chain_chunk)(init_z)
     return HMCChainState(z=init_z, logpost=lp0, grad=g0,
                          da=da_init(cfg.init_step, C, init_z.device))
 
@@ -304,7 +340,7 @@ def make_warmup_window(logpost_fn: Callable, cfg: HMCConfig,
     """One warmup window `(states, inv_mass, w, gen) -> (states,
     inv_mass)`.  Looping it over w = 0..n_windows-1 is warmup(); finish
     with `freeze_step_size(states, group)` for the sampling eps."""
-    vgrad = value_and_grad(logpost_fn)
+    vgrad = value_and_grad(logpost_fn, cfg.chain_chunk)
 
     def window_fn(states, inv_mass, w: int, gen: torch.Generator):
         P = states.z.shape[-1]
@@ -355,7 +391,7 @@ def sample_chunk(logpost_fn: Callable, states: HMCChainState,
                  cfg: HMCConfig, gen: torch.Generator):
     """Record `n_record` thinned samples from every chain.
     Returns (states, zs [C, n, P], lps [C, n], accept [C, n])."""
-    vgrad = value_and_grad(logpost_fn)
+    vgrad = value_and_grad(logpost_fn, cfg.chain_chunk)
     chol = _metric_chol(inv_mass)
     zs, lps, aps = [], [], []
     for _ in range(n_record):

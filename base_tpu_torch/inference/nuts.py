@@ -4,10 +4,11 @@
 base_tpu builds one chain's tree with `lax.while_loop`s and vmaps chains,
 so they advance in lockstep to the slowest tree.  Here the lockstep is
 written out: every state tensor has a leading chain axis C, depth and leaf
-counters are shared, and every leapfrog leaf is one call of the density on
-all C chains.  Each chain carries two masks, "tree done" and "still active
-in this subtree"; a chain that is done keeps its state (its density is
-still evaluated, so the launch shapes stay fixed).
+counters are shared, and every leapfrog leaf is one evaluation of the
+density on all C chains (one call, or one per block of `chain_chunk`
+rows: hmc.value_and_grad).  Each chain carries two masks, "tree done"
+and "still active in this subtree"; a chain that is done keeps its state
+(its density is still evaluated, so the launch shapes stay fixed).
 
 - Sub-U-turn checks use a checkpoint stack [C, max_depth, P]: leaf s is
   stored at slot j whenever s % 2^j == 0 (it opens a 2^j block), and leaf
@@ -66,16 +67,10 @@ class NUTSConfig:
     # cross-chain covariance, and pinned density-flat dims.
     dense_mass: bool = False
     free_mask: tuple | None = None
-    # base_tpu runs blocks of chain_chunk chains one after another to bound
-    # device memory; every chain here is one row of each density call, so
-    # only None (all chains at once) is taken.
+    # Max chains in one density call (same memory-bounding semantics as
+    # HMCConfig.chain_chunk: blocks of rows run one after another, peak
+    # memory is one block's).
     chain_chunk: int | None = None
-
-    def __post_init__(self):
-        if self.chain_chunk is not None:
-            raise NotImplementedError(
-                "chain_chunk: the port runs every chain in one lockstep; "
-                "leave it None")
 
     def mask_array(self, P: int, device) -> torch.Tensor:
         if self.free_mask is None:
@@ -270,7 +265,7 @@ def init_nuts_chains(logpost_fn: Callable, init_z: torch.Tensor,
                      cfg: NUTSConfig) -> NUTSChainState:
     """Initial state of every chain (leading axis C)."""
     C, _ = init_z.shape
-    lp0, g0 = value_and_grad(logpost_fn)(init_z)
+    lp0, g0 = value_and_grad(logpost_fn, cfg.chain_chunk)(init_z)
     return NUTSChainState(z=init_z, logpost=lp0, grad=g0,
                           da=da_init(cfg.init_step, C, init_z.device))
 
@@ -283,7 +278,7 @@ def make_nuts_warmup_window(
     """One warmup window `(states, inv_mass, w, gen) -> (states,
     inv_mass)`, the NUTS analog of hmc.make_warmup_window (same schedule,
     shared _window_update, pooled over `group`'s ranks)."""
-    vgrad = value_and_grad(logpost_fn)
+    vgrad = value_and_grad(logpost_fn, cfg.chain_chunk)
     seg_len = max(cfg.n_warmup // cfg.n_windows, 1)
 
     def window_fn(states, inv_mass, w: int, gen: torch.Generator):
@@ -318,7 +313,7 @@ def nuts_sample_chunk(
     (states, zs [C, n, P], lps [C, n], accs [C, n], nlfs [C, n]): each
     draw's accept statistic is the mean over its `thin` transitions and
     its leapfrog count the sum."""
-    vgrad = value_and_grad(logpost_fn)
+    vgrad = value_and_grad(logpost_fn, cfg.chain_chunk)
     chol = _metric_chol(inv_mass)
 
     zs, lps, accs, nlfs = [], [], [], []

@@ -154,7 +154,7 @@ def _one_block_wd(model: SinglePopModel, params: torch.Tensor,
     prec = wd_mod.wd_prec_logage(model.grid, params[:, C.Param.FEH],
                                  params[:, C.Param.YYY], zams)
     log_cool = wd_mod.cooling_log_age(prec, params[:, C.Param.AGE, None])
-    log_marg = masked_logsumexp(flat, flat > NEG_INF / 2, dim=-1)
+    log_marg = masked_logsumexp(flat, flat > NEG_INF / 2, axis=-1)
     return WDMassSamples(
         zams_mass=zams, wd_mass=m_wd.expand_as(zams), log_cool_age=log_cool,
         is_db=is_db, log_marg=log_marg,

@@ -270,7 +270,7 @@ def mass_prior_log_norm(table: SegmentTable) -> torch.Tensor:
     """log Z(theta) [C]: log of the total IMF x dM (x dm2) weight over the
     valid segments, the normaliser that makes the per-star mass prior a
     proper density (its hull moves with theta)."""
-    return masked_logsumexp(table.logw, table.mask, dim=-1)
+    return masked_logsumexp(table.logw, table.mask, axis=-1)
 
 
 def ms_log_marginals(stars: MSStars, table: SegmentTable,

@@ -132,7 +132,7 @@ def wd_segment_table(
     dm = mz_grid[1:] - mz_grid[:-1]
     logw_m = priors.log_imf(m_mid) + torch.log(dm.clamp_min(1e-30))
     seg_valid = valid[:, 1:] & valid[:, :-1]                   # [C, K-1]
-    log_z = masked_logsumexp(logw_m.expand_as(seg_valid), seg_valid, dim=-1)
+    log_z = masked_logsumexp(logw_m.expand_as(seg_valid), seg_valid, axis=-1)
     wa, wb = _type_log_weights(p_db)
     logw = torch.cat([logw_m + wa - log_z[:, None],
                       logw_m + wb - log_z[:, None]], dim=1)

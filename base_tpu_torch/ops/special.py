@@ -17,15 +17,15 @@ _INV_SQRT_2PI = 0.3989422804014327
 
 
 def masked_logsumexp(x: torch.Tensor, mask: torch.Tensor,
-                     dim: int = -1) -> torch.Tensor:
-    """log(sum_i mask_i * exp(x_i)) along `dim`, safe for all-masked rows
+                     axis: int = -1) -> torch.Tensor:
+    """log(sum_i mask_i * exp(x_i)) along `axis`, safe for all-masked rows
     (which return NEG_INF, a large negative float32, not -inf)."""
     mask = mask.bool()
     neg = torch.full_like(x, NEG_INF)
     x = torch.where(mask, x, neg)
-    m = torch.amax(x, dim=dim, keepdim=True).clamp_min(NEG_INF)
-    s = torch.where(mask, torch.exp(x - m), torch.zeros_like(x)).sum(dim)
-    out = m.squeeze(dim) + torch.log(s.clamp_min(1e-38))
+    m = torch.amax(x, dim=axis, keepdim=True).clamp_min(NEG_INF)
+    s = torch.where(mask, torch.exp(x - m), torch.zeros_like(x)).sum(axis)
+    out = m.squeeze(axis) + torch.log(s.clamp_min(1e-38))
     return torch.where(s > 0, out, torch.full_like(out, NEG_INF))
 
 

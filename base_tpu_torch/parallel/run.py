@@ -31,8 +31,12 @@ log-Jacobian outside both).
 Lockstep.  The star shards of one chain block draw from one generator and
 get bitwise-equal reduced densities and gradients (one all-reduce gives
 every rank the same bytes), so they take the same decisions and make the
-same density calls.  A rank that diverged would leave its group one
-collective short; the groups' finite timeouts turn that into an error.
+same density calls.  With a sampler's `chain_chunk`, every call on a
+chain block becomes one call (and one all-reduce) per block of chunk
+rows (hmc.value_and_grad); the ranks of a star group hold the same block,
+so they make the same number of them.  A rank that diverged would leave
+its group one collective short; the groups' finite timeouts turn that
+into an error.
 
 `density_calls` and `density_rows` count this rank's calls of the sharded
 density and the rows (chains, particles) they evaluated, since the last
@@ -292,12 +296,16 @@ def run_smc_sharded(model, transform, center_z: torch.Tensor,
 
 
 def run_vi_sharded(model, transform, z0: torch.Tensor, gen: torch.Generator,
-                   cfg: vi_mod.VIConfig, mesh: Mesh) -> vi_mod.VIResult:
+                   cfg: vi_mod.VIConfig, mesh: Mesh,
+                   chunk_steps: int = 100) -> vi_mod.VIResult:
     """ADVI over the mesh: stars shard inside the density, and every
     chain shard draws its own cfg.n_mc reparameterised samples a step
     (its chain shard's generator), the ELBO gradient pmean-ed over the
     chain group, so a c-way chain axis multiplies the MC sample count by
-    c; the variational parameters stay equal on every rank."""
+    c; the variational parameters stay equal on every rank.
+    `chunk_steps` is base_tpu's, kept for its signature and unused, as in
+    vi.run_vi_chunked: on the GPU no limit on one execution forces
+    chunks."""
     noise = vi_mod._noise(mesh.chain_generator(gen), z0, cfg)
     return vi_mod.fit_vi(_logpost_z(model, transform, mesh), z0, noise, cfg,
                          group=mesh.chain_group)
@@ -305,12 +313,13 @@ def run_vi_sharded(model, transform, z0: torch.Tensor, gen: torch.Generator,
 
 def vi_warm_start_sharded(model, transform, z0: torch.Tensor,
                           gen: torch.Generator, n_chains: int, mesh: Mesh,
-                          free_mask=None, cfg: vi_mod.VIConfig | None = None):
+                          free_mask=None, cfg: vi_mod.VIConfig | None = None,
+                          chunk_steps: int = 100):
     """vi.vi_warm_start over the mesh: (init_z [n_chains, P], inv_mass0
     [P, P], VIResult), the draws from `gen` after the fit (equal on every
-    rank)."""
+    rank).  `chunk_steps` is unused (run_vi_sharded)."""
     res = run_vi_sharded(model, transform, z0, gen,
-                         cfg or vi_mod.WARM_START_CFG, mesh)
+                         cfg or vi_mod.WARM_START_CFG, mesh, chunk_steps)
     return (*vi_mod.warm_start_draws(res, z0, gen, n_chains, free_mask),
             res)
 

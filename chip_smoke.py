@@ -36,7 +36,7 @@ DA + DB segment table (T = 190), so they launch twice per evaluation.
 Phases 7a-7e (`run_config3`): 7a kernels 3 and 4 against their plain
 versions at its MS and WD shapes, a fully masked WD chain among them; 7b
 log_post and its gradient, card against CPU, and bit for bit; 7c chunked
-HMC, 32 + 16 draws (launches counted over this phase alone); 7d
+HMC, 24 + 16 draws (launches counted over this phase alone); 7d
 sample_wd_masses on thinned draws against the simulated ZAMS masses; 7e
 the density's wall and device time per call, its busy share, and kernels
 3 and 4 at the WD shapes against their bound.
@@ -59,7 +59,7 @@ config-4 shapes against their bound.
 
 Phase 9 is config 1 under NUTS (benchmarks/nuts_vs_hmc_tpu.py's settings,
 `run_nuts_config1`): phase 4's model and 64 chains, dense metric, the flat
-dims pinned, max_depth 7, 128 + 64 draws through make_nuts_chunked_runner;
+dims pinned, max_depth 7, 128 + 48 draws through make_nuts_chunked_runner;
 every leaf one density call on all chains, every kernel's launches held
 equal to the density calls, split R-hat of the age < 1.1 and its mean
 within 4 sd of the truth, beside phase 4's HMC.
@@ -82,7 +82,17 @@ at beta = 1, the log-evidence +- SE, the age within AGE_TOL5 (0.03 dex)
 of the truth, the peak memory; 11c: kernels 1 and 3 against plain on 4 of the 1024 rows
 at S = 10 000 (the plain [rows, S, T, B] tensors hold 0.65 GB a row),
 kernels 2 and 4 on VI's 8 rows (kernel 4's plain version on 2), and their
-times beside their bounds at both shapes.
+times beside their bounds at both shapes.  11d (`run_longaxis5`) is config
+5's long-axis path (benchmarks/longaxis_10k_converged.py's recipe, cut to
+16 + 16 transitions): 16 chains from 11a's VI draws, the warmup metric
+from its covariance, dense HMC with step jitter, l_max 24 and chain_chunk
+8, so each density evaluation is two calls of 8 rows and every kernel
+launches twice an evaluation (held exactly, the evaluations counted from
+the calls' rows); finite draws, acceptance > 0; the run with chain_chunk
+against the run without over 2 transitions from one generator state (bit
+for bit, else within CHUNK_REL_TOL; it prints which held); kernels 1-4
+against plain on a block of its final draws; one call's peak memory and
+time with chain_chunk and without, and the age beside 11a's and 11b's.
 
 Phase 12 (`run_cli`) drives the port's CLI, `base_tpu_torch.tools.main`,
 in-process (so the wrappers' launch counters see it) at the widths of
@@ -152,7 +162,8 @@ The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
 that the per-kernel JSON (config 3's launches and WD-shape numbers,
 config 4's launches and times at its shapes, the launches of phases 9, 10,
-11, 12 (`launches_cli`) and 13 (`launches_wide`), the times and bounds at
+11a-11b, 11d (`launches_config5_longaxis`), 12 (`launches_cli`) and 13
+(`launches_wide`), the times and bounds at
 config 5's SMC and VI shapes and at B = 29 (`b29`), as extra fields;
 kernels 3m and 4m have rows of their own; `launches_parallel`: phase
 14's HMC), before that the `parallel` JSON of phase 14, the `wide` JSON of
@@ -178,6 +189,7 @@ element needs the full path.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -509,14 +521,48 @@ def counted(fn):
     return f, calls
 
 
+def counted_rows(fn):
+    """fn with a record of the rows of every call: (wrapped, [rows of
+    each call])."""
+    rows = []
+
+    def f(z):
+        rows.append(int(z.shape[0]))
+        return fn(z)
+
+    return f, rows
+
+
 def check_one_launch_per_call(label: str, counts: dict, calls: int,
-                              kernels=tuple(KERNELS)) -> None:
-    """Raise unless each of `kernels` launched once per density call, and
-    every other kernel never."""
-    want = {k: (calls if k in kernels else 0) for k in counts}
+                              kernels=tuple(KERNELS),
+                              blocks: int = 1) -> None:
+    """Raise unless each of `kernels` launched `blocks` times per density
+    evaluation (`calls` of them; blocks > 1 with a sampler's chain_chunk,
+    whose evaluations run in blocks of rows), and every other kernel
+    never."""
+    want = {k: (calls * blocks if k in kernels else 0) for k in counts}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} for {calls} "
-                             f"density calls (want {want})")
+                             f"density evaluations of {blocks} block(s) "
+                             f"(want {want})")
+
+
+def block_evaluations(label: str, rows: list, n_rows: int,
+                      chunk: int | None) -> int:
+    """The density evaluations behind the recorded calls `rows` (each
+    call's row count) of a sampler on n_rows chains under chain_chunk
+    `chunk`: raises unless every call held one block's rows
+    (hmc.chain_blocks) and the calls make whole evaluations; returns
+    their number."""
+    from base_tpu_torch.inference.hmc import chain_blocks
+
+    blocks = chain_blocks(n_rows, chunk)
+    per_call = n_rows // blocks
+    if not rows or set(rows) != {per_call} or len(rows) % blocks:
+        raise AssertionError(f"{label}: density calls of {sorted(set(rows))}"
+                             f" rows ({len(rows)} calls), want {per_call} "
+                             f"rows a call in evaluations of {blocks}")
+    return len(rows) // blocks
 
 
 def run_hmc(model, truth=TRUTH, n_chains: int = N_CHAINS, free=FREE,
@@ -986,9 +1032,9 @@ PRIOR_SIGMA3 = np.array([-1, -1, 0.3, 0.2, 0.1, 0.1, 0.3, 0.15, -1],
 N_CHAINS3, N_STARS3, N_MZ3, UPSAMPLE3 = 16, 512, 96, 4
 # A short run (the benchmark takes 768 + 3072): one density + gradient call
 # of config 3 takes 25-48 ms on the card, host-bound (the host varies), so
-# 48 x 48 calls (halved when phases 9-11 joined) keep the whole
-# script well inside its time limit.
-N_WARMUP3, N_SAMPLES3 = 32, 16
+# 40 x 48 calls (halved when phases 9-11 joined, the warmup cut from 32 to
+# 24 when phase 11d did) keep the whole script well inside its time limit.
+N_WARMUP3, N_SAMPLES3 = 24, 16
 
 
 def make_data3():
@@ -1457,8 +1503,9 @@ def run_config4(dev) -> dict:
 # and chains, dense metric, the flat dims pinned, max_depth 7.  A short run
 # (the benchmark takes 256 + 1024 draws): 64 warmup transitions left the
 # chains short of stationary (split R-hat of age 1.129 after 64 draws on an
-# H100), 128 do not (1.048).
-N_WARMUP_NUTS, N_SAMPLES_NUTS, MAX_DEPTH_NUTS = 128, 64, 7
+# H100), 128 do not (1.048); the draws were cut from 64 to 48 when phase
+# 11d joined.
+N_WARMUP_NUTS, N_SAMPLES_NUTS, MAX_DEPTH_NUTS = 128, 48, 7
 
 
 def age_summary(xs) -> dict:
@@ -1938,7 +1985,177 @@ def run_config5(dev) -> dict:
             f"bound {bound_ms:.5f} ms by {bound_by}")
     log("  marglik_bwd skip rule at VI's shape: "
         + json.dumps(work["marglik_bwd_skip"]))
-    return dict(vi=vi, smc=smc, kernels=kernels5)
+
+    log(f"phase 11d: VI warm start into chunked dense HMC, {N_CHAINS5D} "
+        f"chains, chain_chunk {CHAIN_CHUNK5D}, l_max {L_MAX5D}, "
+        f"{N_WARMUP5D} + {N_SAMPLES5D} draws")
+    longaxis = run_longaxis5(model, vres, z0, free, smc)
+    for name in kernels5:
+        kernels5[name]["launches_config5_longaxis"] = \
+            longaxis["launches"][name]
+    return dict(vi=vi, smc=smc, longaxis=longaxis, kernels=kernels5)
+
+
+# Phase 11d: config 5's long-axis path (benchmarks/longaxis_10k_converged.py:
+# 85-170; at CI size and sharded, tests/test_longaxis.py) on phase 11's
+# model and data and 11a's VI: the chains start from VI draws and the
+# warmup metric from the VI covariance (vi.warm_start_draws: the pinned
+# block a unit diagonal, as tests/test_longaxis.py:47-48), then dense HMC
+# with step jitter, l_max 24, init_step 0.1 and chain_chunk 8 on 16
+# chains: each density evaluation two blocks of 8 rows.  Cut only in
+# length: 16 + 16 transitions in 2 windows (the benchmark: 192 + 1024 in
+# 6; scripts/torch_longaxis.py runs it whole).
+N_CHAINS5D, CHAIN_CHUNK5D = 16, 8
+N_WARMUP5D, N_SAMPLES5D, N_WINDOWS5D, L_MAX5D = 16, 16, 2, 24
+# The chunked and the unchunked run are compared over this many
+# transitions from one generator state, bit for bit where the card gives
+# it, else at ROADMAP section C's float32 tolerance of the whole log_post
+# (1e-4 relative), on the log densities and the positions.
+N_COMPARE5D = 2
+CHUNK_REL_TOL = 1e-4
+
+
+def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def _max_scaled(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest per-row max |a - b| over the row's max |b|."""
+    return float(((a - b).abs().amax(1)
+                  / b.abs().amax(1).clamp_min(1e-30)).max())
+
+
+def compare_chunked(fz, init, inv_mass0, eps, cfg) -> dict:
+    """N_COMPARE5D HMC transitions of `cfg` from `init` with chain_chunk
+    and without it, from one generator seed: whether the states are bit
+    for bit equal, else their largest relative differences, raising past
+    CHUNK_REL_TOL; and each run's row counts per call."""
+    from base_tpu_torch.inference import hmc
+
+    def run(chunk):
+        c = dataclasses.replace(cfg, chain_chunk=chunk)
+        f, rows = counted_rows(fz)
+        st = hmc.init_chains(f, init, c)
+        vg = hmc.value_and_grad(f, chunk)
+        gen = torch.Generator(device=init.device).manual_seed(11)
+        for _ in range(N_COMPARE5D):
+            st, _ = hmc.hmc_transition(vg, st, eps, inv_mass0, c, gen)
+        return st, rows
+
+    (a, rows_a), (b, rows_b) = run(cfg.chain_chunk), run(None)
+    bitwise = all(torch.equal(x, y) for x, y in
+                  ((a.z, b.z), (a.logpost, b.logpost), (a.grad, b.grad)))
+    # One evaluation at the same points, in blocks and in one call.
+    v0, g0 = hmc.value_and_grad(fz, cfg.chain_chunk)(init)
+    v1, g1 = hmc.value_and_grad(fz)(init)
+    res = dict(start_value_bit_for_bit=torch.equal(v0, v1),
+               start_grad_bit_for_bit=torch.equal(g0, g1),
+               start_value_rel_diff=_max_rel(v0, v1),
+               start_grad_scaled_diff=_max_scaled(g0, g1),
+               transitions=N_COMPARE5D, bit_for_bit=bitwise,
+               held="bit for bit" if bitwise else "float32 tolerance",
+               z_rel_diff=_max_rel(a.z, b.z),
+               logpost_rel_diff=_max_rel(a.logpost, b.logpost),
+               grad_scaled_diff=_max_scaled(a.grad, b.grad),
+               rows_per_call=[sorted(set(rows_a)), sorted(set(rows_b))],
+               calls=[len(rows_a), len(rows_b)])
+    if not (bitwise or (res["z_rel_diff"] <= CHUNK_REL_TOL
+                        and res["logpost_rel_diff"] <= CHUNK_REL_TOL)):
+        raise AssertionError(f"11d: chunked HMC off the unchunked run: {res}")
+    return res
+
+
+def run_longaxis5(model, vres, z0, free, smc: dict) -> dict:
+    """Phase 11d: VI warm start (11a's fit) into chunked dense HMC at
+    10 000 stars.  Gates: every call one block of CHAIN_CHUNK5D rows, the
+    evaluations those of the run's length, each kernel's launches equal
+    to evaluations x blocks; finite draws; acceptance > 0; chunked equal
+    to unchunked over N_COMPARE5D transitions (compare_chunked); kernels
+    1-4 against their plain versions on 2 rows of a block of the final
+    draws.  Printed: the peak memory and the wall of one density +
+    gradient call on the 16 chains with chain_chunk and without, and the
+    age's mean and sd beside 11a's VI and 11b's SMC."""
+    from base_tpu_torch.inference import diagnostics as diag
+    from base_tpu_torch.inference import hmc
+    from base_tpu_torch.inference.driver import make_hmc_chunked_runner
+    from base_tpu_torch.inference.vi import warm_start_draws
+    from base_tpu_torch.model import posterior as post
+
+    dev = z0.device
+    tr = post.default_transform(model)
+    fz = post.make_logpost_z_fn(model, tr)
+    init, inv_mass0 = warm_start_draws(
+        vres, z0, torch.Generator(device=dev).manual_seed(9), N_CHAINS5D,
+        free)
+    cfg = hmc.HMCConfig(n_warmup=N_WARMUP5D, n_samples=N_SAMPLES5D,
+                        l_max=L_MAX5D, n_windows=N_WINDOWS5D,
+                        dense_mass=True, free_mask=free, jitter_mode="step",
+                        init_step=0.1, chain_chunk=CHAIN_CHUNK5D)
+    f, rows = counted_rows(fz)
+    runner = make_hmc_chunked_runner(f, cfg, chunk_draws=N_SAMPLES5D)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zs, info = runner(init, torch.Generator(device=dev).manual_seed(10),
+                      inv_mass0=inv_mass0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    blocks = hmc.chain_blocks(N_CHAINS5D, CHAIN_CHUNK5D)
+    evals = block_evaluations("11d", rows, N_CHAINS5D, CHAIN_CHUNK5D)
+    want_evals = 1 + L_MAX5D * (
+        N_WINDOWS5D * max(N_WARMUP5D // N_WINDOWS5D, 1) + N_SAMPLES5D)
+    if not (blocks == 2 and evals == want_evals):
+        raise AssertionError(f"11d: {evals} evaluations of {blocks} blocks "
+                             f"(want {want_evals} of 2)")
+    check_one_launch_per_call("11d", counts, evals, blocks=blocks)
+    xs = tr.forward(zs)
+    age = xs[:, :, 0]
+    res = dict(
+        wall_s=wall, chains=N_CHAINS5D, chain_chunk=CHAIN_CHUNK5D,
+        blocks=blocks, evaluations=evals, density_calls=len(rows),
+        ms_per_evaluation=1e3 * wall / evals, launches=counts,
+        accept=float(info["accept_prob"]),
+        step_size=float(info["step_size"]),
+        age=dict(mean=float(age.mean()), sd=float(age.std()),
+                 truth=float(TRUTH[0]),
+                 rhat=float(diag.split_rhat(xs[:, :, :1])[0]),
+                 ess=float(diag.ess(xs[:, :, :1])[0])),
+        vi_age=dict(mean=smc["vi_age_mean"], sd=smc["vi_age_sd"]),
+        smc_age={k: smc["posterior"]["logAge"][k] for k in ("mean", "sd")})
+    if not torch.isfinite(zs).all():
+        raise AssertionError("11d: non-finite HMC draws")
+    if not res["accept"] > 0.0:
+        raise AssertionError(f"11d: acceptance {res['accept']}")
+    res["chunked_vs_unchunked"] = compare_chunked(
+        fz, init, inv_mass0, info["step_size"], cfg)
+
+    # Kernels 1-4 against plain on a block of the final draws (the shape
+    # the path launches them at): kernels 1 and 3 held to plain on 2 rows,
+    # kernel 2 on all 8, kernel 4 on 2.
+    inputs = kernel_inputs(model, zs[-1, :CHAIN_CHUNK5D])
+    rows_k = torch.tensor([0, CHAIN_CHUNK5D - 1], device=dev)
+    errs = check_rows(*inputs, rows_k, "11d")
+    errs.update(check_bwd_rows(*inputs, rows_k, "11d"))
+    res["max_abs_err"] = errs
+    del inputs
+
+    z_last = zs[-1].contiguous()
+    per_call = {}
+    for chunk in (CHAIN_CHUNK5D, None):
+        vg = hmc.value_and_grad(fz, chunk)
+        vg(z_last)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        vg(z_last)
+        torch.cuda.synchronize()
+        per_call[str(chunk)] = dict(
+            peak_memory_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
+            ms=cuda_ms(lambda: vg(z_last), reps=5))
+    res["per_call_16_chains"] = per_call
+    log("  long-axis HMC " + json.dumps(res))
+    return res
 
 
 # Phase 12: the port's CLI (base_tpu_torch.tools.main) end to end, called

@@ -491,6 +491,40 @@ def test_nuts_launches_equal_density_calls(cuda):
     assert 0.0 < float(info["accept_prob"]) <= 1.0
 
 
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_chain_chunk_launches_per_block(cuda, sampler):
+    """chain_chunk 4 on 8 chains (config 1, 40 stars): every density call
+    holds one block of 4 rows, in evaluations of two calls, and each of
+    kernels 1-4 launches once per call: twice an evaluation."""
+    import chip_smoke
+    from base_tpu_torch.inference.driver import make_hmc_chunked_runner
+    from base_tpu_torch.inference.hmc import HMCConfig
+    from base_tpu_torch.inference.nuts import (NUTSConfig,
+                                               make_nuts_chunked_runner)
+
+    mags, sig = chip_smoke.make_data()
+    model = chip_smoke.make_model((mags[:40], sig[:40]), cuda)
+    fz, rows = chip_smoke.counted_rows(chip_smoke.logpost_z_fn(model))
+    common = dict(n_warmup=8, n_samples=8, n_windows=2, dense_mass=True,
+                  free_mask=chip_smoke.FREE, chain_chunk=4)
+    if sampler == "hmc":
+        runner = make_hmc_chunked_runner(
+            fz, HMCConfig(l_max=6, jitter_mode="step", **common), 8)
+    else:
+        runner = make_nuts_chunked_runner(
+            fz, NUTSConfig(max_depth=4, **common), chunk_draws=8)
+    init = chip_smoke.chain_points(model, 0.02, seed=2, n_chains=8)
+    chip_smoke.reset_launch_counts()
+    zs, _ = runner(init, torch.Generator(device=cuda).manual_seed(4))
+    counts = chip_smoke.launch_counts()
+    evals = chip_smoke.block_evaluations(sampler, rows, 8, 4)
+    assert set(rows) == {4} and len(rows) == 2 * evals
+    if sampler == "hmc":
+        assert evals == 1 + 16 * 6
+    chip_smoke.check_one_launch_per_call(sampler, counts, evals, blocks=2)
+    assert zs.shape == (8, 8, 9) and bool(torch.isfinite(zs).all())
+
+
 def test_smc_folded_replicates_equal_single_runs(cuda):
     """Tempered SMC on the card, 3 replicates x 256 particles folded into
     one particle axis, equals each replicate run alone on its generator:

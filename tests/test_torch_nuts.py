@@ -4,7 +4,8 @@ checkpoint stack against a brute-force check of every complete balanced
 subtree, the moment tests of tests/test_nuts.py (threefry and Philox
 streams differ, so there is no bit parity with base_tpu's draws), the
 chunked runner against run_nuts bit for bit, and the lockstep: one density
-call per leaf for all chains."""
+call per leaf for all chains (chain_chunk's blocks:
+tests/test_torch_longaxis.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -217,13 +218,6 @@ def test_nuts_chunked_runner_bit_identical():
     for key in ("inv_mass", "step_size", "logposts", "accept_prob",
                 "mean_leapfrogs"):
         assert torch.equal(info_mono[key], info_chunk[key]), key
-
-
-def test_nuts_chain_chunk_refused():
-    """base_tpu's chain_chunk (sequential chain blocks) is taken and
-    refused: the port runs every chain in one lockstep."""
-    with pytest.raises(NotImplementedError, match="chain_chunk"):
-        nuts.NUTSConfig(chain_chunk=2)
 
 
 def test_one_density_call_per_leaf():

@@ -60,6 +60,12 @@ def test_masked_logsumexp():
                                     torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
     assert got[2] == np.float32(tspecial.NEG_INF)
+    # base_tpu's keyword, along the other axis.
+    want0 = np.asarray(jspecial.masked_logsumexp(
+        jnp.asarray(x), jnp.asarray(mask), axis=0))
+    got0 = tspecial.masked_logsumexp(torch.from_numpy(x),
+                                     torch.from_numpy(mask), axis=0).numpy()
+    np.testing.assert_allclose(got0, want0, rtol=1e-6, atol=1e-5)
 
 
 def _axis_queries(seed: int):

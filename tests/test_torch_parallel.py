@@ -24,7 +24,9 @@ and to tests/test_parallel.py's checks:
   (f) a 1 x 1 mesh (a world of one, in this process) equals the
       unsharded path bit for bit;
   (g) a sharded checkpointed run interrupted and resumed equals an
-      uninterrupted one bit for bit.
+      uninterrupted one bit for bit;
+  (h) tests/test_longaxis.py's recipe: the sharded VI warm start into
+      run_hmc_sharded with inv_mass0 and chain_chunk.
 
 The workers import no JAX: the JAX imports stay inside the parent's
 fixtures and tests.
@@ -187,6 +189,37 @@ def _sampler_start(model):
     return tr, z0, init, gen
 
 
+# (h)'s run: 16 + 16 transitions of l_max 4 from one start; chain_chunk 2
+# of each rank's 4 chains.
+LONGAXIS_HMC = dict(n_warmup=16, n_samples=16, l_max=4, n_windows=2,
+                    chain_chunk=2)
+
+
+def _longaxis(model, mesh):
+    """(h) tests/test_longaxis.py's recipe at mesh (2, 2): sharded
+    full-rank VI, then run_hmc_sharded from its draws with its covariance
+    as inv_mass0, dense metric, step jitter and chain_chunk; cut to 50 VI
+    steps and LONGAXIS_HMC (test_longaxis.py: 400 steps, then 96 + 128
+    transitions of l_max 12 at 384 stars)."""
+    from base_tpu_torch.inference import hmc
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.parallel import run as prun
+
+    tr, z0, _, gen = _sampler_start(model)
+    free = post.free_mask(model)
+    draws, cov, _ = prun.vi_warm_start_sharded(
+        model, tr, z0, gen(51), N_CHAINS, mesh, free_mask=free,
+        cfg=dataclasses.replace(VI_CFG, n_steps=50), chunk_steps=25)
+    cfg = hmc.HMCConfig(dense_mass=True, free_mask=free, jitter_mode="step",
+                        init_step=0.1, **LONGAXIS_HMC)
+    prun.reset_counts()
+    zs, info = prun.run_hmc_sharded(model, tr, draws, gen(52), cfg, mesh,
+                                    inv_mass0=cov)
+    return dict(zs=zs, logposts=info["logposts"], accept=info["accept_prob"],
+                draws=draws, calls=prun.density_calls,
+                rows=prun.density_rows)
+
+
 def _samplers_a(model, mesh, d):
     """(d) and (e) at mesh (2, 2): MH (with and without a burn-in model),
     NUTS and SMC."""
@@ -237,7 +270,7 @@ def _samplers_a(model, mesh, d):
 
 def _samplers_b(model, mesh, d):
     """(d), (e) and (g) at mesh (2, 2): HMC, VI and the sharded
-    checkpointed HMC interrupted and resumed."""
+    checkpointed HMC interrupted and resumed; (h)."""
     from base_tpu_torch.inference import hmc
     from base_tpu_torch.inference.driver import DriverConfig
     from base_tpu_torch.model import posterior as post
@@ -285,12 +318,13 @@ def _samplers_b(model, mesh, d):
         DriverConfig(chunk_size=10))
     out["resume"] = [(zs, info["logposts"], info["step_size"],
                       info["inv_mass"]) for zs, info in (resumed, whole)]
+    out["longaxis"] = _longaxis(model, mesh)
     return out
 
 
-# The two worlds' shares of the cases, balanced by time (~25 s each on one
-# CPU thread a rank): the densities, pooled statistics, MH, NUTS and SMC;
-# HMC, VI and the checkpointed HMC.
+# The two worlds' shares of the cases, balanced by time (~25-30 s each on
+# one CPU thread a rank): the densities, pooled statistics, MH, NUTS and
+# SMC; HMC, VI, the checkpointed HMC and (h).
 WORLD_PARTS = (_samplers_a, _samplers_b)
 
 
@@ -689,3 +723,45 @@ def test_sharded_checkpoint_resume_bit_identical(world):
         assert zs.shape == (30, N_CHAINS, 9)
         assert torch.equal(zs, zs2) and torch.equal(lps, lps2)
         assert torch.equal(eps, eps2) and torch.equal(im, im2)
+
+
+def test_longaxis_vi_into_chunked_sharded_hmc(world):
+    """(h) The long-axis recipe at mesh (2, 2): every density call of a
+    rank holds one block of chain_chunk of its 4 chains, and the calls
+    are the run's evaluations (the start, then l_max a transition) times
+    the blocks; the chains start at the VI draws (pinned dims at z0),
+    move, accept and recover the age; the star shards of a chain block
+    and the chain group's gathers agree bit for bit.  (Chunked against
+    unchunked runs: tests/test_torch_hmc.py.  On this CPU the gradient of
+    this model at 2 rows rounds a few ulp apart from its gradient at 4,
+    which HMC's trajectories amplify.)"""
+    from base_tpu_torch.inference import hmc
+    from base_tpu_torch.model import posterior as post
+
+    _, inp, ranks = world
+    h = LONGAXIS_HMC
+    local = N_CHAINS // 2
+    blocks = local // h["chain_chunk"]
+    evals = 1 + (h["n_warmup"] + h["n_samples"]) * h["l_max"]
+    assert blocks == hmc.chain_blocks(local, h["chain_chunk"]) == 2
+    for r in ranks:
+        a = r["longaxis"]
+        assert a["calls"] == evals * blocks
+        assert a["rows"] == evals * local
+    model = _port_model(inp)
+    tr = post.default_transform(model)
+    free = np.asarray(post.free_mask(model)) > 0
+    z0 = tr.inverse(torch.from_numpy(TRUTH))
+    a = ranks[0]["longaxis"]
+    assert torch.equal(a["draws"][:, ~free],
+                       z0[None, ~free].expand(N_CHAINS, -1))
+    z = a["zs"]
+    assert z.shape == (h["n_samples"], N_CHAINS, 9)
+    assert torch.isfinite(z).all()
+    assert (np.ptp(z.numpy(), axis=0)[:, free].min(axis=-1) > 1e-5).all()
+    assert float(a["accept"]) > 0.5
+    xs = tr.forward(z)
+    assert abs(float(xs[..., 0].mean()) - TRUTH[0]) < 0.1
+    for i, j in ((0, 1), (2, 3), (0, 2)):
+        assert torch.equal(ranks[i]["longaxis"]["zs"],
+                           ranks[j]["longaxis"]["zs"])
