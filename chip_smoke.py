@@ -17,7 +17,7 @@ Phases:
    (T = 2016, N = 2024), with the tolerances asserted;
 3. log_post and its gradient on 64 chains, kernels on the card against the
    plain path on the CPU, and two card runs compared bit for bit;
-4. HMC through make_hmc_chunked_runner (64 + 64 draws), with every
+4. HMC through make_hmc_chunked_runner (48 + 32 draws), with every
    kernel's launch count taken over this phase alone;
 5. each kernel's time against its plain version (CUDA events) at both
    shapes, and its device time (`device_ms`: CUDA events around launches
@@ -36,7 +36,7 @@ DA + DB segment table (T = 190), so they launch twice per evaluation.
 Phases 7a-7e (`run_config3`): 7a kernels 3 and 4 against their plain
 versions at its MS and WD shapes, a fully masked WD chain among them; 7b
 log_post and its gradient, card against CPU, and bit for bit; 7c chunked
-HMC, 24 + 16 draws (launches counted over this phase alone); 7d
+HMC, 24 + 8 draws (launches counted over this phase alone); 7d
 sample_wd_masses on thinned draws against the simulated ZAMS masses; 7e
 the density's wall and device time per call, its busy share, and kernels
 3 and 4 at the WD shapes against their bound.
@@ -67,7 +67,7 @@ within 4 sd of the truth, beside phase 4's HMC.
 Config 2 (BASELINE.json config 2, benchmarks/field_membership_tpu.py's
 settings, `run_config2`) is field-star membership: 200 members, every one a
 binary, plus 40 uniform-CMD field stars at membership priors 0.9 / 0.3,
-upsample 4.  Phase 10a: chunked HMC on 32 chains (32 + 16 draws), launches
+upsample 4.  Phase 10a: chunked HMC on 32 chains (32 + 8 draws), launches
 equal to the density calls; 10b: sample_ms_masses on every 16th draw, the
 membership posterior of 8 draws against the CPU plain path, and the
 members-vs-field AUC (>= 0.95).
@@ -84,7 +84,7 @@ at S = 10 000 (the plain [rows, S, T, B] tensors hold 0.65 GB a row),
 kernels 2 and 4 on VI's 8 rows (kernel 4's plain version on 2), and their
 times beside their bounds at both shapes.  11d (`run_longaxis5`) is config
 5's long-axis path (benchmarks/longaxis_10k_converged.py's recipe, cut to
-16 + 16 transitions): 16 chains from 11a's VI draws, the warmup metric
+16 + 8 transitions): 16 chains from 11a's VI draws, the warmup metric
 from its covariance, dense HMC with step jitter, l_max 24 and chain_chunk
 8, so each density evaluation is two calls of 8 rows and every kernel
 launches twice an evaluation (held exactly, the evaluations counted from
@@ -136,8 +136,8 @@ Phase 14 (`run_parallel`) is the parallel layer, base_tpu_torch.parallel.
 14a: a world of one in this process (NCCL, by the backend rule), mesh 1
 x 1 on cuda:0: local_logpost_fn's value and gradient on phase 4's model
 and chains equal the unsharded card density bit for bit, its kernels
-launched once a call; run_hmc_sharded (phase 4's settings, l_max 8, 32 +
-32) equals run_hmc given the chain-shard-0 generator, bit for bit, with
+launched once a call; run_hmc_sharded (phase 4's settings, l_max 8, 16 +
+16) equals run_hmc given the chain-shard-0 generator, bit for bit, with
 every kernel's launches equal to the density calls.  14c: simulate ->
 scatter -> `single-pop --mesh 1,2 --metrics` at phase 12's settings (the
 CLI spawns two ranks on the card), 1024 finite rows, the age within 4 sd
@@ -154,9 +154,29 @@ CLI model's sharded checkpointed HMC interrupted after chunk 1 and
 resumed, bit for bit against an uninterrupted run.  Each run prints its
 backend, world size, wall and density calls per second.
 
+Phase 15 (`run_golden`) holds the port to base_tpu's pinned posterior
+(tests/data/golden_singlepop.json, tests/test_goldens.py): the golden
+model (64 stars that base_tpu simulated from JAX's streams, read from
+tests/data/golden_singlepop_stars.json; the conftest small grid's axes,
+E = 48; n_q 8) built with the port's API (`golden_model`).  15a: log_post
+at the truth within GOLDEN_RTOL (1e-4) of the golden 871.7948 and within
+DENSITY_REL_TOL of the CPU plain path; kernels 1-4 against their plain
+versions on 64 chains of this model, and the density and gradient on 16
+of them against the CPU.  15b: test_goldens.py's adaptive MH (4 chains,
+400 + 400 + 2000 steps, its step0), kernels 1 and 3 launched once a
+density call; each free parameter's mean and sd held to the golden's by
+test_goldens.py:70-77's rule, beside the accept rate (golden 0.427),
+split R-hat, ESS and a z against the golden mean (reported only).  15c:
+the main path's HMC (run_hmc: 64 chains, dense metric, step jitter,
+l_max 48, N_WARMUP15 + N_SAMPLES15), every kernel launched once a density
+call, held to the golden by the same rule, with split R-hat, ESS and z
+for each free parameter.
+
 Every profiler pass (phases 6, 7e and 8e) is padded with idle host time
 (PROFILE_PAD_S) and must hold the records of at least 99% of the launches
 that the kernel wrappers counted in it.
+
+Each phase's wall is logged as it ends (`PhaseClock`).
 
 The last line is one JSON object with "ok", "device"; the line before it
 is the card's name and power limit from nvidia-smi, and the one before
@@ -166,7 +186,9 @@ config 4's launches and times at its shapes, the launches of phases 9, 10,
 (`launches_wide`), the times and bounds at
 config 5's SMC and VI shapes and at B = 29 (`b29`), as extra fields;
 kernels 3m and 4m have rows of their own; `launches_parallel`: phase
-14's HMC), before that the `parallel` JSON of phase 14, the `wide` JSON of
+14's HMC; `launches_golden`: phase 15's MH and HMC), before that the
+`golden` JSON of phase 15 with every phase's wall, the `parallel` JSON of
+phase 14, the `wide` JSON of
 phase 13, and before that the `cli` JSON of phase 12 (each tool's wall,
 single-pop's samples/s, evals/s, density calls and ESS/s of the age).
 Without a CUDA device it exits non-zero before printing any result.  It
@@ -203,6 +225,9 @@ TRUTH = np.array([9.3, 0.27, -0.5, 10.0, 0.3, 0.5, 0, 0, 0], np.float32)
 PRIOR_SIGMA = np.array([-1, -1, 0.3, 0.2, 0.1, -1, -1, -1, -1], np.float32)
 FREE = (1, 1, 1, 1, 1, 0, 0, 0, 0)
 N_CHAINS, N_STARS, N_EEP, N_Q = 64, 100, 64, 8
+# Phase 4's run: 64 + 64 transitions until phase 15 joined (split R-hat of
+# the age 1.036 after 64 draws on an H100).
+N_WARMUP_MAIN, N_SAMPLES_MAIN = 48, 32
 
 # Kernel vs plain on identical inputs: forward max abs error (log-marginals
 # only where the value is > -200, where float32 has real precision), and
@@ -1032,9 +1057,11 @@ PRIOR_SIGMA3 = np.array([-1, -1, 0.3, 0.2, 0.1, 0.1, 0.3, 0.15, -1],
 N_CHAINS3, N_STARS3, N_MZ3, UPSAMPLE3 = 16, 512, 96, 4
 # A short run (the benchmark takes 768 + 3072): one density + gradient call
 # of config 3 takes 25-48 ms on the card, host-bound (the host varies), so
-# 40 x 48 calls (halved when phases 9-11 joined, the warmup cut from 32 to
-# 24 when phase 11d did) keep the whole script well inside its time limit.
-N_WARMUP3, N_SAMPLES3 = 24, 16
+# 32 x 48 calls (halved when phases 9-11 joined, the warmup cut from 32 to
+# 24 when phase 11d did, the draws from 16 to 8 when phase 15 did; 16 + 8
+# left accept 0.29 where 24 + 16 had 0.83) keep the whole script well
+# inside its time limit.
+N_WARMUP3, N_SAMPLES3 = 24, 8
 
 
 def make_data3():
@@ -1220,8 +1247,8 @@ N_CHAINS4, N_STARS4, UPSAMPLE4 = 32, 400, 4
 # A short run (the benchmark takes 256 + 1024 draws; halved from 128 + 64
 # when phases 9-11 joined, the warmup halved again when phase 12 did (the
 # VI warm start hands HMC its draws and metric), and the draws when phase
-# 14 did).
-N_WARMUP4, N_SAMPLES4 = 32, 16
+# 14 did and again when phase 15 did).
+N_WARMUP4, N_SAMPLES4 = 32, 8
 # Reference-parity MH (bench_baseline.py:229-231): 64 chains.
 N_CHAINS_MH4 = 64
 STEP_MH4 = np.zeros(12, np.float32)
@@ -1578,9 +1605,10 @@ def run_nuts_config1(model, hmc_res: dict) -> dict:
 # benchmark takes 512 + 2048 draws), cut from 64 + 64 to 32 + 32 when phase
 # 12 joined (the whole script took 770 s on one H100 machine and 1075 s on
 # another, and a machine 1.5x slower still would leave it little of its
-# 1200 s limit), and to 32 + 16 when phase 14 did.
+# 1200 s limit), to 32 + 16 when phase 14 did and to 32 + 8 when phase 15
+# did.
 N_MEMBERS2, N_FIELD2, N_CHAINS2 = 200, 40, 32
-N_WARMUP2, N_SAMPLES2 = 32, 16
+N_WARMUP2, N_SAMPLES2 = 32, 8
 # p_member, card vs CPU plain path.  Both evaluate the plain marginal in
 # float32, whose floor reaches ~1e-2 where chi2 cancels at the start of long
 # segments (the conditionals' un-upsampled table; 2^-7 to 2^-3 between an
@@ -2003,10 +2031,11 @@ def run_config5(dev) -> dict:
 # block a unit diagonal, as tests/test_longaxis.py:47-48), then dense HMC
 # with step jitter, l_max 24, init_step 0.1 and chain_chunk 8 on 16
 # chains: each density evaluation two blocks of 8 rows.  Cut only in
-# length: 16 + 16 transitions in 2 windows (the benchmark: 192 + 1024 in
-# 6; scripts/torch_longaxis.py runs it whole).
+# length: 16 + 8 transitions in 2 windows (16 + 16 until phase 15 joined;
+# the benchmark: 192 + 1024 in 6; scripts/torch_longaxis.py runs it
+# whole).
 N_CHAINS5D, CHAIN_CHUNK5D = 16, 8
-N_WARMUP5D, N_SAMPLES5D, N_WINDOWS5D, L_MAX5D = 16, 16, 2, 24
+N_WARMUP5D, N_SAMPLES5D, N_WINDOWS5D, L_MAX5D = 16, 8, 2, 24
 # The chunked and the unchunked run are compared over this many
 # transitions from one generator state, bit for bit where the card gives
 # it, else at ROADMAP section C's float32 tolerance of the whole log_post
@@ -2163,8 +2192,9 @@ def run_longaxis5(model, vres, z0, free, smc: dict) -> dict:
 # conf/base9.yaml (100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, the
 # default upsample 4, 64 chains, dense metric, lMax 48).  Only the depth is
 # cut: 16 warmup transitions and 16 draws a chain (32 + 32 until phase 14
-# joined), which leaves phases 13 and 14 their time within the script's
-# limit.  conf/base9.yaml says
+# joined), which leaves phases 13-15 their time within the script's limit
+# (with 8 draws the CLI's --metrics windows, a quarter of the draws, hold
+# 2 draws a chain: no split R-hat).  conf/base9.yaml says
 # usePallas: false, which the card refuses; settings read a later `--set
 # mcmc.usePallas=auto` over that YAML boolean as false (as base_tpu's do),
 # so the kernels are asked for with true.
@@ -2182,8 +2212,9 @@ PLAIN_BLOCK_BYTES = 1e9
 CMD_TOL = 2e-4
 # 12d: checkpointed HMC on the CLI's model, interrupted after chunk 1.  Its
 # trajectories are cut to 4 leapfrog steps (the CLI's 48 took 146 s on an
-# H100 for the three runs; resuming does not depend on the length).
-N_CHAINS_RESUME, N_WARMUP_RESUME, N_SAMPLES_RESUME, CHUNK_RESUME = 16, 32, 32, 8
+# H100 for the three runs; resuming does not depend on the length), its
+# draws to 16 (32 until phase 15 joined): two chunks.
+N_CHAINS_RESUME, N_WARMUP_RESUME, N_SAMPLES_RESUME, CHUNK_RESUME = 16, 32, 16, 8
 L_MAX_RESUME = 4
 
 
@@ -2883,9 +2914,10 @@ def run_wide(dev, bench) -> dict:
 # 99 stars, which pad to 100), and at config 5's 10 000 stars; sharded
 # HMC on config 1; and the CLI model's sharded checkpointed HMC
 # interrupted and resumed.  Its HMC takes phase 4's settings with l_max 8
-# (phase 4's 48 would take ~6x the time; the checks do not depend on it).
+# (phase 4's 48 would take ~6x the time; the checks do not depend on it),
+# 16 + 16 transitions (32 + 32 until phase 15 joined).
 MESHES14 = ((1, 2), (2, 1))
-N_WARMUP14, N_SAMPLES14, L_MAX14 = 32, 32, 8
+N_WARMUP14, N_SAMPLES14, L_MAX14 = 16, 16, 8
 # tests/test_parallel.py:106-111: the star sum reassociated across shards.
 SHARD_VALUE_RTOL = 1e-5
 SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 5e-3, 2e-3   # atol x the largest |grad|
@@ -2993,7 +3025,7 @@ def sharded_hmc(model, mesh, label: str) -> tuple[dict, torch.Tensor]:
 
 def sharded_resume(s, phot: str, ckpt: str, mesh) -> dict:
     """12d over the mesh: the CLI's model, run_hmc_sharded_checkpointed
-    (16 chains, 32 + 32, chunk 8, l_max 4) interrupted after chunk 1 (rank
+    (16 chains, 32 + 16, chunk 8, l_max 4) interrupted after chunk 1 (rank
     0 wrote the whole run) and resumed on every rank, against an
     uninterrupted run, bit for bit."""
     from base_tpu_torch.inference import driver
@@ -3245,6 +3277,202 @@ def run_parallel(dev, model, z) -> dict:
     return res
 
 
+# Phase 15: the port held to base_tpu's pinned posterior.  The golden model
+# is tests/test_goldens.py's: the 64-star catalog base_tpu simulates from
+# JAX's threefry streams (keys 77 / 78, 30% binaries), read from
+# GOLDEN_STARS_PATH (scripts/golden_stars_from_jax.py writes it; this
+# machine needs no JAX), on the conftest small grid's axes (E = 48), n_q 8,
+# upsample 1.  GOLDEN_PATH pins its density at the truth and the moments
+# of 4 adaptive-MH chains of 500 + 500 + 12 000 steps
+# (scripts/regen_goldens.py).  15b runs the MH of test_goldens.py:62-66
+# (4 chains, 400 + 400 + 2000); 15c the main path's HMC, cut to
+# N_WARMUP15 + N_SAMPLES15 transitions on 64 chains.  On one H100, 48 + 32
+# took 51-68 s by host (split R-hat <= 1.010, |z| <= 1.35) and 32 + 16 took
+# 37 s (split R-hat up to 1.066, |z| up to 3.45: the warmup short of
+# stationary), so the draws were cut and not the warmup.
+GOLDEN_PATH = "tests/data/golden_singlepop.json"
+GOLDEN_STARS_PATH = "tests/data/golden_singlepop_stars.json"
+GOLDEN_AXES = dict(feh_axis=np.linspace(-1.5, 0.3, 4),
+                   y_axis=np.linspace(0.24, 0.31, 3),
+                   age_axis=np.linspace(8.6, 10.1, 6), n_eep=48)
+GOLDEN_RTOL = 1e-4           # test_goldens.py:52
+GOLDEN_STEP0 = np.array([0.05, 0.02, 0.05, 0.05, 0.03, 0, 0, 0, 0],
+                        np.float32)
+GOLDEN_MH = dict(n_stage1=400, n_stage2=400, n_main=2000)
+N_CHAINS_MH15, SEED_MH15 = 4, 123
+N_WARMUP15, N_SAMPLES15 = 48, 16
+# The golden's effective draws, for the z that 15b and 15c report (and do
+# not check): taken as ~1000 of its 4 x 12 000 adaptive-MH draws, whose
+# ESS the golden file does not hold.
+ESS_GOLDEN = 1000.0
+
+
+def repo_path(rel: str) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def load_golden() -> dict:
+    with open(repo_path(GOLDEN_PATH)) as f:
+        return json.load(f)
+
+
+def golden_stars() -> dict:
+    """The golden catalog: mags and sigmas [64, B] float32, bands, truth."""
+    with open(repo_path(GOLDEN_STARS_PATH)) as f:
+        doc = json.load(f)
+    for k in ("mags", "sigmas", "truth"):
+        doc[k] = np.asarray(doc[k], np.float32)
+    return doc
+
+
+def golden_model(device, use_pallas: bool = True):
+    """tests/test_goldens.py's golden model, built with the port's API."""
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.model.stardata import make_ms_stars
+
+    doc = golden_stars()
+    grid = synthetic.make_grid(**GOLDEN_AXES, device=device)
+    if tuple(grid.bands) != tuple(doc["bands"]):
+        raise AssertionError(f"golden bands {doc['bands']} vs {grid.bands}")
+    stars = make_ms_stars(doc["mags"], doc["sigmas"], cm_prior=0.99,
+                          device=device)
+    return post.make_single_pop_model(grid, stars, prior_mean=doc["truth"],
+                                      prior_sigma=PRIOR_SIGMA, n_q=N_Q,
+                                      use_pallas=use_pallas, device=device)
+
+
+def golden_moments(xs, golden: dict, ess=None) -> dict:
+    """test_goldens.py:70-77's rule on constrained draws xs [N, C, 9] for
+    the five free parameters: |mean - golden mean| < 5 sd_g / 3 + 1e-3 and
+    0.4 sd_g < sd + 1e-5 < 2.5 sd_g + 1e-3 (sd over all draws, ddof 0).
+    With `ess` [5], also z = (mean - golden mean) / (sd_g sqrt(1 / ess +
+    1 / ESS_GOLDEN)), reported and not checked.  Returns {name: {mean, sd,
+    golden_mean, golden_sd, mean_ok, sd_ok[, ess, z]}}."""
+    from base_tpu_torch.constants import PARAM_NAMES
+
+    flat = xs.reshape(-1, xs.shape[-1]).double().cpu()
+    out = {}
+    for i in range(5):
+        m, s = float(flat[:, i].mean()), float(flat[:, i].std(correction=0))
+        mg, sg = golden["mean"][i], golden["sd"][i]
+        r = dict(mean=m, sd=s, golden_mean=mg, golden_sd=sg,
+                 mean_ok=abs(m - mg) < 5 * sg / 3 + 1e-3,
+                 sd_ok=0.4 * sg < s + 1e-5 < 2.5 * sg + 1e-3)
+        if ess is not None:
+            r["ess"] = float(ess[i])
+            r["z"] = (m - mg) / (sg * math.sqrt(1.0 / r["ess"]
+                                                + 1.0 / ESS_GOLDEN))
+        out[PARAM_NAMES[i]] = r
+    return out
+
+
+def check_golden_moments(label: str, moments: dict) -> None:
+    bad = {n: r for n, r in moments.items()
+           if not (r["mean_ok"] and r["sd_ok"])}
+    if bad:
+        raise AssertionError(f"{label}: moments off the golden: {bad}")
+
+
+def golden_density(model, model_cpu, golden: dict) -> dict:
+    """15a: log_post at the truth on the card against the golden value and
+    the CPU plain path."""
+    from base_tpu_torch.model import posterior as post
+
+    x = torch.as_tensor(TRUTH, device=model.grid.device)[None]
+    with torch.no_grad():
+        lp = float(post.log_post(model, x)[0])
+        lp_cpu = float(post.log_post(model_cpu, x.cpu())[0])
+    want = golden["logpost_at_truth"]
+    res = dict(logpost_at_truth=lp, cpu=lp_cpu, golden=want,
+               rel_err_golden=abs(lp - want) / abs(want),
+               rel_err_cpu=abs(lp - lp_cpu) / max(1.0, abs(lp_cpu)))
+    log("  " + json.dumps(res))
+    if not res["rel_err_golden"] <= GOLDEN_RTOL:
+        raise AssertionError(f"15a: log_post at the truth {lp} vs the "
+                             f"golden {want}")
+    if not res["rel_err_cpu"] <= DENSITY_REL_TOL:
+        raise AssertionError(f"15a: log_post at the truth {lp} on the card, "
+                             f"{lp_cpu} on the CPU")
+    return res
+
+
+def run_golden_mh(model, golden: dict) -> dict:
+    """15b: test_goldens.py:62-66's adaptive MH through the port: 4 chains
+    from the truth, 400 + 400 + 2000 steps, each one density call without
+    gradients (kernels 1 and 3)."""
+    from base_tpu_torch.inference import diagnostics as diag
+    from base_tpu_torch.inference.mh import MHConfig, run_adaptive_mh
+    from base_tpu_torch.model import posterior as post
+
+    dev = model.grid.device
+    f, evals = counted(post.make_logpost_fn(model))
+    start = torch.as_tensor(TRUTH, device=dev).expand(N_CHAINS_MH15, -1)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = run_adaptive_mh(
+        f, start.contiguous(), torch.Generator(device=dev).manual_seed(
+            SEED_MH15), torch.as_tensor(GOLDEN_STEP0, device=dev),
+        MHConfig(**GOLDEN_MH))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    moments = golden_moments(samples, golden, diag.ess(samples[..., :5]))
+    res = dict(wall_s=wall, chains=N_CHAINS_MH15, evals=evals[0],
+               launches=counts,
+               accept=float(info["accept_rate"].mean()),
+               golden_accept=golden["accept"],
+               rhat={n: float(v) for n, v in zip(
+                   moments, diag.split_rhat(samples[..., :5]))},
+               moments=moments)
+    log("  " + json.dumps(res))
+    if not torch.isfinite(samples).all():
+        raise AssertionError("15b: non-finite MH draws")
+    check_one_launch_per_call("15b MH", counts, evals[0],
+                              kernels=("table_fwd", "marglik_fwd"))
+    check_golden_moments("15b MH", moments)
+    return res
+
+
+def run_golden(dev) -> dict:
+    """Phase 15 (see the comment above GOLDEN_PATH): (a) the density at the
+    truth and kernels 1-4 against their plain versions on the golden
+    model; (b) reference-mode MH; (c) the main path's HMC, its moments
+    held to the golden's."""
+    golden = load_golden()
+    model = golden_model(dev)
+    model_cpu = golden_model("cpu")
+    res = {}
+    log("phase 15a: the golden model's log_post at the truth; kernels vs "
+        "plain; density + gradient vs CPU")
+    t0 = time.perf_counter()
+    res["density"] = golden_density(model, model_cpu, golden)
+    z = chain_points(model, 0.05, seed=1)
+    res["max_abs_err"] = check_kernels(model, z, "golden")
+    check_density(model, model_cpu, z[:16])
+    res["density"]["wall_s"] = time.perf_counter() - t0
+
+    log(f"phase 15b: adaptive MH, {N_CHAINS_MH15} chains, "
+        f"{GOLDEN_MH['n_stage1']} + {GOLDEN_MH['n_stage2']} + "
+        f"{GOLDEN_MH['n_main']} steps")
+    res["mh"] = run_golden_mh(model, golden)
+
+    log(f"phase 15c: chunked HMC, {N_CHAINS} chains, dense metric, l_max 48, "
+        f"{N_WARMUP15} + {N_SAMPLES15} draws")
+    hmc, xs = run_hmc(model, n_warmup=N_WARMUP15, n_samples=N_SAMPLES15,
+                      report=(0, 1, 2, 3, 4))
+    check_one_launch_per_call("15c HMC", hmc["launches"], hmc["evals"])
+    hmc["moments"] = golden_moments(xs, golden,
+                                    [hmc["ess"][n] for n in hmc["ess"]])
+    log("  moments: " + json.dumps(hmc["moments"]))
+    check_golden_moments("15c HMC", hmc["moments"])
+    res["hmc"] = hmc
+    return res
+
+
 def kernel_outputs(models: dict, z) -> dict:
     """Kernels 1 and 4 on phase 2's inputs at each shape, with the inputs,
     for --save-outputs."""
@@ -3315,6 +3543,22 @@ def setup(root: str | None):
     return data, model, model_up4, chain_points(model, 0.05, seed=1)
 
 
+class PhaseClock:
+    """Each phase's wall (s) and the script's running total, logged as the
+    phases end."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.walls = {}
+
+    def done(self, label: str) -> None:
+        now = time.perf_counter()
+        self.walls[label] = now - self.t
+        log(f"  [phase {label}: {now - self.t:.1f} s; {now - self.t0:.1f} s "
+            f"since the build]")
+        self.t = now
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times-only", action="store_true",
@@ -3344,58 +3588,78 @@ def main() -> None:
         print(json.dumps({"kernels": report}))
         return
 
+    clock = PhaseClock()
     # 2. Kernels vs their plain versions, bench and upsample-4 shapes.
     log("phase 2: kernels vs plain on the card")
     errs = check_kernels(model, z, "bench")
     errs_up4 = check_kernels(model_up4, z, "upsample 4")
     worst = {k: max(errs[k], errs_up4[k]) for k in errs}
+    clock.done("2")
 
     # 3. Density parity against the CPU plain path, and determinism.
     log("phase 3: log_post + gradient, card vs CPU")
     check_density(model, make_model(data, "cpu"), z)
+    clock.done("3")
 
     # 4. HMC, the main path.
-    log("phase 4: chunked HMC, 64 chains, dense metric, l_max 48")
-    hmc_res, _ = run_hmc(model)
+    log(f"phase 4: chunked HMC, {N_CHAINS} chains, dense metric, l_max 48, "
+        f"{N_WARMUP_MAIN} + {N_SAMPLES_MAIN} draws")
+    hmc_res, _ = run_hmc(model, n_warmup=N_WARMUP_MAIN,
+                         n_samples=N_SAMPLES_MAIN)
+    clock.done("4")
 
     # 5. Kernel times vs plain and vs their bounds, at both shapes.
     log("phase 5: kernel times (CUDA events) and bounds")
     report = kernel_report(model, model_up4, z)
     walls = density_walls(models, z)
+    clock.done("5")
 
     # 6. Device busy share and kernel shares of device time.
     log("phase 6: torch.profiler, density + gradient")
     shares = {label: device_shares(m, z, label, walls[label])
               for label, m in models.items()}
+    clock.done("6")
 
     # 7a-7e. Config 3: the WD branch through kernels 3 and 4.
     c3 = run_config3(torch.device("cuda", 0),
                      baseline=(model_up4, z[:N_CHAINS3]))
+    clock.done("7")
 
     # 8a-8e. Config 4: two populations folded into one pass.
     c4 = run_config4(torch.device("cuda", 0))
+    clock.done("8")
 
     # 9. Config 1 under NUTS.
     log(f"phase 9: chunked NUTS, {N_CHAINS} chains, dense metric, max_depth "
         f"{MAX_DEPTH_NUTS}, {N_WARMUP_NUTS} + {N_SAMPLES_NUTS} draws")
     nuts = run_nuts_config1(model, hmc_res)
+    clock.done("9")
 
     # 10. Config 2: field membership.
     c2 = run_config2(torch.device("cuda", 0))
+    clock.done("10")
 
     # 11. Config 5's single-card leg: VI + tempered SMC at 10 000 stars.
     c5 = run_config5(torch.device("cuda", 0))
+    clock.done("11")
 
     # 12. The CLI end to end at conf/base9.yaml's widths.
     cli = run_cli(torch.device("cuda", 0), hmc_res)
+    clock.done("12")
 
     # 13. Wide band sets: the grid ingest, the CLI at 29 bands, the matmul
     # form of kernels 3 and 4.
     wide = run_wide(torch.device("cuda", 0), (model, z))
+    clock.done("13")
 
     # 14. The parallel layer: a 1 x 1 mesh, the CLI's --mesh 1,2, and two
     # ranks on the card at meshes (1, 2) and (2, 1).
     par = run_parallel(torch.device("cuda", 0), model, z)
+    clock.done("14")
+
+    # 15. The port held to base_tpu's pinned posterior (the goldens).
+    golden = run_golden(torch.device("cuda", 0))
+    clock.done("15")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3428,7 +3692,11 @@ def main() -> None:
             launches_parallel={
                 "14a": par["14a"]["launches"][name],
                 **{k[4:]: [r["hmc"]["launches"][name] for r in par[k]]
-                   for k in par if k.startswith("14b ")}}))
+                   for k in par if k.startswith("14b ")}},
+            # Phase 15's MH (kernels 1 and 3) and HMC on the golden model.
+            launches_golden={k: golden[k]["launches"][name]
+                             for k in ("mh", "hmc")},
+            max_abs_err_golden=golden["max_abs_err"][name]))
         if not all(math.isfinite(v) for k, v in kernels[-1].items()
                    if k.startswith(("ms", "plain_ms", "bound_ms",
                                     "device_ms"))):
@@ -3454,6 +3722,7 @@ def main() -> None:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"wide": wide}))
     print(json.dumps({"parallel": par}))
+    print(json.dumps({"golden": golden, "phase_walls": clock.walls}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,16 @@ test_cli_mesh.py's draws): every rank runs the plain density on one CPU
 thread.
 
 The killed-and-resumed run starts its 4 ranks itself, as a user's
-`--mesh 2,2` does.  Every other `--mesh 2,2` run of the module goes
-through one of two worlds of 4 gloo ranks, spawned once at the start and
-running side by side (`mesh_world`): each rank calls the CLI's `main` on
-its world's runs in order, with the CLI's `_run_sharded` handing each
-tool that world's 2 x 2 mesh (what `_rank_main` does after joining a
-world), so that the module pays for two starts of 4 ranks instead of
-twelve, and a test waits only for its own run."""
+`--mesh 2,2` does.  Every other `--mesh 2,2` run of a module goes
+through one world of 4 gloo ranks, spawned once at its start
+(`mesh_world`): each rank calls the CLI's `main` on the world's runs in
+order, with the CLI's `_run_sharded` handing each tool that world's 2 x 2
+mesh (what `_rank_main` does after joining a world), so that a module
+pays for one start of 4 ranks instead of one a run, and a test waits only
+for its own run.  This file holds the single-pop runs; the multi-pop ones
+are in tests/test_torch_cli_mesh_multipop.py, with a world of its own (a
+file holds at most 8 Tier-1 tests: pytest-xdist's loadfile hands out
+files with more tests ahead of the JAX long pole, tests/test_cli_mesh.py)."""
 from __future__ import annotations
 
 import json
@@ -76,7 +79,7 @@ def _run(photdir, outbase, extra, phot="sim.phot"):
     return resio.read_res(str(photdir / (outbase + ".res")))
 
 
-# ---- two worlds of 4 ranks for the module's --mesh 2,2 runs ---------------
+# ---- a world of 4 ranks for a module's --mesh 2,2 runs --------------------
 
 WORLD = 4
 WORLD_DEADLINE_S = 900
@@ -94,9 +97,10 @@ def _short(sampler):
 
 
 def _mesh_jobs(photdir):
-    """Two lists (one a world) of (name, argv, files rank 0 copies after
-    the run) of every --mesh 2,2 run the tests read, in the order each
-    world runs them; the vi runs (600 steps) in different worlds."""
+    """Two lists (one a world: this file's single-pop runs and
+    test_torch_cli_mesh_multipop.py's multi-pop runs) of (name, argv,
+    files rank 0 copies after the run) of every --mesh 2,2 run the tests
+    read, in the order each world runs them."""
     def job(name, tool, outbase, extra, seed="5", phot="sim.phot",
             copies=()):
         return (name, _argv(photdir, tool, outbase, extra, seed=seed,
@@ -110,20 +114,20 @@ def _mesh_jobs(photdir):
     return (
         [job("metrics", "single-pop", "mesh",
              ["--mesh", "2,2", "--metrics", str(photdir / "m.jsonl")]),
+         job("sp_smc", "single-pop", "sp_smc", sampler("sp", "smc")),
+         job("sp_mh", "single-pop", "sp_mh", sampler("sp", "mh"),
+             phot="dbi.phot"),
+         job("sp_vi", "single-pop", "sp_vi", sampler("sp", "vi")),
+         job("sp_nuts", "single-pop", "sp_nuts", sampler("sp", "nuts"))],
+        [job("mpmesh", "multi-pop", "mpmesh", ["--mesh", "2,2"], seed="7"),
          job("mp_vi", "multi-pop", "mp_vi", sampler("mp", "vi"), seed="7"),
          # multi-pop --resume twice: the first run's files kept aside.
          job("mpres1", "multi-pop", "mpres", MP_RESUME, seed="7",
              copies=tuple((f, f.replace("mpres", "mpres_first"))
                           for f in mpres)),
          job("mpres2", "multi-pop", "mpres", MP_RESUME, seed="7"),
-         job("sp_smc", "single-pop", "sp_smc", sampler("sp", "smc")),
-         job("sp_mh", "single-pop", "sp_mh", sampler("sp", "mh"),
-             phot="dbi.phot")],
-        [job("mpmesh", "multi-pop", "mpmesh", ["--mesh", "2,2"], seed="7"),
-         job("sp_vi", "single-pop", "sp_vi", sampler("sp", "vi")),
          job("mp_nuts", "multi-pop", "mp_nuts", sampler("mp", "nuts"),
              seed="7"),
-         job("sp_nuts", "single-pop", "sp_nuts", sampler("sp", "nuts")),
          job("mp_smc", "multi-pop", "mp_smc", sampler("mp", "smc"),
              seed="7"),
          job("mp_mh", "multi-pop", "mp_mh", sampler("mp", "mh"),
@@ -171,41 +175,31 @@ def _mesh_world(rank, d, store, jobs):
         distributed.shutdown()
 
 
-@pytest.fixture(scope="module")
-def mesh_world(photdir, tmp_path_factory):
-    """Starts the two worlds on `_mesh_jobs` and returns `ran(name)`,
-    which waits until that job is done and raises with a rank's traceback
-    where it failed; at the end of the module the worlds are joined."""
+def start_mesh_world(photdir, tmp_path_factory, part):
+    """Starts a world on `_mesh_jobs(photdir)[part]` and yields
+    `ran(name)`, which waits until that job is done and raises with a
+    rank's traceback where it failed; at the end the world is joined."""
     import torch.multiprocessing as tmp
 
-    from base_tpu_torch.io import phot as photio
-
-    # single-pop mh: photometry that leaves every third star out of
-    # burn-in, so that its stages 1-2 target the useDuringBurnIn model on
-    # the same star shards.
-    table = photio.read_phot(str(photdir / "sim.phot"))
-    table.use_dbi[::3] = 0
-    photio.write_phot(str(photdir / "dbi.phot"), table)
     stores = tmp_path_factory.mktemp("torch_climesh_stores")
-    ctxs = [tmp.start_processes(
-        _mesh_world, args=(str(photdir), str(stores / f"store{i}"), jobs),
+    ctx = tmp.start_processes(
+        _mesh_world, args=(str(photdir), str(stores / "store"),
+                           _mesh_jobs(photdir)[part]),
         nprocs=WORLD, start_method="spawn", join=False)
-        for i, jobs in enumerate(_mesh_jobs(photdir))]
     deadline = time.monotonic() + WORLD_DEADLINE_S
 
     def kill():
-        for ctx in ctxs:
-            for p in ctx.processes:
-                p.kill()
+        for p in ctx.processes:
+            p.kill()
 
     def ran(name):
         while not (photdir / f"{name}.done").exists():
             if time.monotonic() > deadline:
                 kill()
-                pytest.fail(f"the spawned worlds ran past "
+                pytest.fail(f"the spawned world ran past "
                             f"{WORLD_DEADLINE_S} s")
-            if all(not p.is_alive() for c in ctxs for p in c.processes):
-                pytest.fail(f"the spawned worlds ended without --mesh run "
+            if all(not p.is_alive() for p in ctx.processes):
+                pytest.fail(f"the spawned world ended without --mesh run "
                             f"{name!r}")
             time.sleep(0.2)
         errs = sorted(photdir.glob(f"{name}.rank*.err"))
@@ -214,11 +208,24 @@ def mesh_world(photdir, tmp_path_factory):
                         + errs[0].read_text()[-3000:])
 
     yield ran
-    for ctx in ctxs:
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                kill()
-                break
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            kill()
+            break
+
+
+@pytest.fixture(scope="module")
+def mesh_world(photdir, tmp_path_factory):
+    """The single-pop runs' world (start_mesh_world)."""
+    from base_tpu_torch.io import phot as photio
+
+    # single-pop mh: photometry that leaves every third star out of
+    # burn-in, so that its stages 1-2 target the useDuringBurnIn model on
+    # the same star shards.
+    table = photio.read_phot(str(photdir / "sim.phot"))
+    table.use_dbi[::3] = 0
+    photio.write_phot(str(photdir / "dbi.phot"), table)
+    yield from start_mesh_world(photdir, tmp_path_factory, 0)
 
 
 @pytest.fixture(scope="module")
@@ -315,46 +322,6 @@ def test_cli_mesh_kill_resume_bit_identical(photdir, metrics_run, tmp_path):
     b = metrics_run[0]
     np.testing.assert_array_equal(a.params, b.params)
     np.testing.assert_array_equal(a.logpost, b.logpost)
-
-
-def _mp_res(photdir, outbase):
-    return np.loadtxt(str(photdir / f"{outbase}.mp.res"), skiprows=1)
-
-
-def test_multipop_mesh_cli(photdir, mesh_world):
-    """multi-pop --mesh 2,2: the two-population density through the same
-    sharded machinery, the ordered Y_A < Y_B transform intact."""
-    mesh_world("mpmesh")
-    raw = _mp_res(photdir, "mpmesh")
-    assert raw.shape == (96, 14)  # 12 params + logPost + chain
-    assert np.isfinite(raw).all()
-    assert (raw[:, 10] > raw[:, 9]).all()
-    assert abs(raw[:, 0].mean() - 9.5) < 0.25
-
-
-def test_multipop_mesh_resume_runs(photdir, mesh_world):
-    """multi-pop --mesh 2,2 --resume writes and consumes the .mp.ckpt
-    checkpoint: the second invocation restores the finished run and
-    rewrites identical output."""
-    mesh_world("mpres1")
-    mesh_world("mpres2")
-    a = _mp_res(photdir, "mpres_first")
-    assert (photdir / "mpres_first.mp.ckpt").exists()
-    b = _mp_res(photdir, "mpres")
-    np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize("sampler", ["nuts", "vi", "smc", "mh"])
-def test_multipop_sampler_breadth(photdir, mesh_world, sampler):
-    """multi-pop --mesh 2,2 runs every other sampler end to end (vi:
-    run_vi_sharded, smc: run_smc_sharded, mh: run_mh_sharded)."""
-    mesh_world(f"mp_{sampler}")
-    raw = _mp_res(photdir, f"mp_{sampler}")
-    assert raw.shape[1] == 14
-    assert np.isfinite(raw[:, :12]).all()
-    if sampler != "mh":   # mh samples the constrained 12-vector
-        assert (raw[:, 10] > raw[:, 9]).all()
-    assert abs(raw[:, 0].mean() - 9.5) < 0.3
 
 
 @pytest.mark.parametrize("sampler", ["nuts", "vi", "smc", "mh"])

@@ -1,5 +1,9 @@
 """Parity of the port's tensor primitives (base_tpu_torch.ops.special,
-.interp) with base_tpu on identical float32 inputs made with numpy."""
+.interp's `locate`) with base_tpu on identical float32 inputs made with
+numpy.  The interpolation weights and lookups are in
+tests/test_torch_interp.py (a file holds at most 8 Tier-1 tests:
+pytest-xdist's loadfile hands out files with more tests ahead of the JAX
+long pole, tests/test_cli_mesh.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,36 +88,3 @@ def test_locate():
     np.testing.assert_allclose(t.frac.numpy(), np.asarray(j.frac),
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(t.inside.numpy(), np.asarray(j.inside))
-
-
-@pytest.mark.parametrize("smooth", [False, True])
-def test_hat_weight_matrix(smooth):
-    axis, q = _axis_queries(6)
-    want = np.asarray(jinterp.hat_weight_matrix(jnp.asarray(axis),
-                                                jnp.asarray(q), smooth))
-    got = tinterp.hat_weight_matrix(torch.from_numpy(axis),
-                                    torch.from_numpy(q), smooth).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
-
-
-@pytest.mark.parametrize("smooth", [False, True])
-def test_interp1d_dense(smooth):
-    """Chain-batched lookup [C, E] x [C, E, B] x [C, Q] equals base_tpu's
-    unbatched lookup per chain (float32 matmul reassociation: 1e-5)."""
-    axes, ys, qs = [], [], []
-    for c in range(3):
-        axis, q = _axis_queries(10 + c)
-        axes.append(axis)
-        qs.append(q)
-        ys.append(np.random.default_rng(c).normal(15, 3, (40, 8))
-                  .astype(np.float32))
-    got = tinterp.interp1d_dense(torch.from_numpy(np.stack(axes)),
-                                 torch.from_numpy(np.stack(ys)),
-                                 torch.from_numpy(np.stack(qs)),
-                                 smooth=smooth).numpy()
-    for c in range(3):
-        want = np.asarray(jinterp.interp1d_dense(
-            jnp.asarray(axes[c]), jnp.asarray(ys[c]), jnp.asarray(qs[c]),
-            smooth=smooth))
-        np.testing.assert_allclose(got[c], want, rtol=0, atol=1e-4)

@@ -1,9 +1,12 @@
-"""The port's parallel layer (base_tpu_torch.parallel) on the CPU: one
-spawned world of 4 gloo ranks runs every sharded case, on the
+"""The port's parallel layer (base_tpu_torch.parallel) on the CPU: a
+spawned world of 4 gloo ranks runs the sharded cases, on the
 `cluster_model` recipe of tests/test_parallel.py (50 stars, n_q 6, no
 binaries) built in both packages from the same numpy inputs, and the
 parent holds the results to base_tpu's shard_map, to the port unsharded,
-and to tests/test_parallel.py's checks:
+and to tests/test_parallel.py's checks.  This file holds (a), (b), (c)
+and (f); tests/test_torch_parallel_samplers.py (d), (e) and (g), and
+tests/test_torch_parallel_longaxis.py (h), each with a world of its own
+(WORLD_JOBS):
 
   (a) the star-sharded value and gradient at meshes (1, 4) (50 stars pad
       to 52) and (2, 2), against base_tpu's shard_map local_logpost_fn on
@@ -322,19 +325,64 @@ def _samplers_b(model, mesh, d):
     return out
 
 
-# The two worlds' shares of the cases, balanced by time (~25-30 s each on
-# one CPU thread a rank): the densities, pooled statistics, MH, NUTS and
-# SMC; HMC, VI, the checkpointed HMC and (h).
-WORLD_PARTS = (_samplers_a, _samplers_b)
-
-
-def _world(rank, d, part):
-    """One rank of world `part` (torch.multiprocessing's entry)."""
-    torch.set_num_threads(1)
-    from base_tpu_torch.parallel import comm, distributed
+def _job_density(inp, d):
+    """(a), (b) and (c): the sharded densities at DENSITY_MESHES, with the
+    plain forward all-reduce, and the pooled statistics."""
+    from base_tpu_torch.parallel import comm
     from base_tpu_torch.parallel.mesh import make_mesh
 
-    distributed.initialize("cpu", init_method=f"file://{d}/store{part}",
+    out = {}
+    models = dict(single=_port_model(inp), multi=_port_model(inp, "multi"),
+                  wd=_wd_model(inp))
+    for shape in DENSITY_MESHES:
+        mesh = make_mesh(*shape)
+        for kind, model in models.items():
+            out["density", kind, shape] = _value_grad(
+                model, mesh, _density_points(kind))
+        enter = comm.enter
+        comm.enter = lambda x, group: x   # a plain forward all-reduce
+        try:
+            out["plain_allreduce", shape] = _value_grad(
+                models["single"], mesh, _density_points("single"))
+        finally:
+            comm.enter = enter
+    mesh = make_mesh(WORLD, 1)
+    out["pooled"] = _pooled(mesh.chain_group, mesh.chain_block)
+    return out
+
+
+def _job_samplers(inp, d):
+    """(d), (e) and (g) at mesh (2, 2)."""
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    model, mesh = _port_model(inp), make_mesh(2, 2)
+    return {**_samplers_a(model, mesh, d), **_samplers_b(model, mesh, d)}
+
+
+def _job_longaxis(inp, d):
+    """(h) at mesh (2, 2)."""
+    from base_tpu_torch.parallel.mesh import make_mesh
+
+    return dict(longaxis=_longaxis(_port_model(inp), make_mesh(2, 2)))
+
+
+# Each test file spawns one world of WORLD ranks running one job (~10-35 s
+# on one CPU thread a rank): this file the densities and pooled
+# statistics, tests/test_torch_parallel_samplers.py the samplers and the
+# checkpointed HMC, tests/test_torch_parallel_longaxis.py (h).  (A file
+# holds at most 8 Tier-1 tests: pytest-xdist's loadfile hands out files
+# with more tests ahead of the JAX long pole, tests/test_cli_mesh.py.)
+WORLD_JOBS = dict(density=_job_density, samplers=_job_samplers,
+                  longaxis=_job_longaxis)
+
+
+def _world(rank, d, job):
+    """One rank of the world running WORLD_JOBS[job]
+    (torch.multiprocessing's entry)."""
+    torch.set_num_threads(1)
+    from base_tpu_torch.parallel import distributed
+
+    distributed.initialize("cpu", init_method=f"file://{d}/store",
                            world_size=WORLD, rank=rank, local_rank=rank,
                            local_world_size=WORLD, timeout_s=120)
     try:
@@ -343,27 +391,7 @@ def _world(rank, d, part):
         while not os.path.exists(inputs) and time.monotonic() < deadline:
             time.sleep(0.1)
         inp = torch.load(inputs, weights_only=False)
-        out = {}
-        if part == 0:
-            models = dict(single=_port_model(inp),
-                          multi=_port_model(inp, "multi"),
-                          wd=_wd_model(inp))
-            for shape in DENSITY_MESHES:
-                mesh = make_mesh(*shape)
-                for kind, model in models.items():
-                    out["density", kind, shape] = _value_grad(
-                        model, mesh, _density_points(kind))
-                enter = comm.enter
-                comm.enter = lambda x, group: x   # a plain forward all-reduce
-                try:
-                    out["plain_allreduce", shape] = _value_grad(
-                        models["single"], mesh, _density_points("single"))
-                finally:
-                    comm.enter = enter
-            mesh = make_mesh(WORLD, 1)
-            out["pooled"] = _pooled(mesh.chain_group, mesh.chain_block)
-        out.update(WORLD_PARTS[part](_port_model(inp), make_mesh(2, 2), d))
-        torch.save(out, f"{d}/rank{rank}.part{part}.pt")
+        torch.save(WORLD_JOBS[job](inp, d), f"{d}/rank{rank}.pt")
     finally:
         distributed.shutdown()
 
@@ -371,29 +399,25 @@ def _world(rank, d, part):
 # ---- the parent ------------------------------------------------------------
 
 class _Ranks:
-    """The spawned worlds' results: each rank's dict (its two worlds'
-    shares merged), waited for on first use, so that the parent's own JAX
-    work runs while the worlds do."""
+    """The spawned world's results: each rank's dict, waited for on first
+    use, so that the parent's own JAX work runs while the world does."""
 
-    def __init__(self, d, ctxs):
-        self.d, self.ctxs = d, ctxs
+    def __init__(self, d, ctx):
+        self.d, self.ctx = d, ctx
         self.deadline = time.monotonic() + WORLD_DEADLINE_S
         self._ranks = None
 
     def _join(self):
         if self._ranks is None:
-            for ctx in self.ctxs:
-                while not ctx.join(timeout=5):
-                    if time.monotonic() > self.deadline:
-                        for p in (p for c in self.ctxs for p in c.processes):
-                            p.kill()
-                        pytest.fail(f"the spawned worlds ran past "
-                                    f"{WORLD_DEADLINE_S} s")
-            self._ranks = [
-                {k: v for part in range(len(WORLD_PARTS))
-                 for k, v in torch.load(self.d / f"rank{r}.part{part}.pt",
-                                        weights_only=False).items()}
-                for r in range(WORLD)]
+            while not self.ctx.join(timeout=5):
+                if time.monotonic() > self.deadline:
+                    for p in self.ctx.processes:
+                        p.kill()
+                    pytest.fail(f"the spawned world ran past "
+                                f"{WORLD_DEADLINE_S} s")
+            self._ranks = [torch.load(self.d / f"rank{r}.pt",
+                                      weights_only=False)
+                           for r in range(WORLD)]
         return self._ranks
 
     def __getitem__(self, i):
@@ -403,11 +427,11 @@ class _Ranks:
         return iter(self._join())
 
 
-@pytest.fixture(scope="module")
-def world(small_grid, tmp_path_factory):
+def spawn_world(small_grid, tmp_path_factory, job):
     """base_tpu's cluster_model, the port's inputs from it, and the
-    results of the spawned worlds' 4 ranks (_Ranks).  The worlds start
-    first and wait for the inputs file."""
+    results of the world's WORLD ranks running WORLD_JOBS[job] (_Ranks).
+    The world starts first and waits for the inputs file; the CLI's WD
+    photometry is made only for the density job."""
     import jax
     import jax.numpy as jnp
     import torch.multiprocessing as tmp
@@ -418,10 +442,9 @@ def world(small_grid, tmp_path_factory):
     from base_tpu.sim.simulate import simulate_cluster
     from base_tpu_torch.tools import main as tmain
 
-    d = tmp_path_factory.mktemp("torch_parallel")
-    ctxs = [tmp.start_processes(_world, args=(str(d), part), nprocs=WORLD,
-                                start_method="spawn", join=False)
-            for part in range(len(WORLD_PARTS))]
+    d = tmp_path_factory.mktemp(f"torch_parallel_{job}")
+    ctx = tmp.start_processes(_world, args=(str(d), job), nprocs=WORLD,
+                              start_method="spawn", join=False)
     cat = simulate_cluster(small_grid, jnp.asarray(TRUTH), 50,
                            jax.random.PRNGKey(21), percent_binary=0.0)
     sc = scatter_cluster(cat.mags, jax.random.PRNGKey(22), limit_mag=24.0)
@@ -430,18 +453,24 @@ def world(small_grid, tmp_path_factory):
     jm = jpost.make_single_pop_model(small_grid, stars, prior_mean=TRUTH,
                                      prior_sigma=PRIOR_SIGMA, n_q=6,
                                      binaries=False)
-    cfg = d / "wd.yaml"
-    cfg.write_text(WD_CONFIG)
-    args = ["--config", str(cfg), "--outputFileBase", str(d / "wd"),
-            "--seed", "5", "--device", "cpu"]
-    tmain.main(["simulate", *args])
-    tmain.main(["scatter", *args, "--photFile", str(d / "wd.sim.phot")])
     inp = dict(grid=_fields(small_grid), stars=_fields(jm.stars),
-               use_pallas=bool(jm.use_pallas), wd_config=str(cfg),
-               wd_phot=str(d / "wd.phot"))
+               use_pallas=bool(jm.use_pallas))
+    if job == "density":
+        cfg = d / "wd.yaml"
+        cfg.write_text(WD_CONFIG)
+        args = ["--config", str(cfg), "--outputFileBase", str(d / "wd"),
+                "--seed", "5", "--device", "cpu"]
+        tmain.main(["simulate", *args])
+        tmain.main(["scatter", *args, "--photFile", str(d / "wd.sim.phot")])
+        inp.update(wd_config=str(cfg), wd_phot=str(d / "wd.phot"))
     torch.save(inp, d / "inputs.tmp")
     os.replace(d / "inputs.tmp", d / "inputs.pt")   # whole, or not there
-    return jm, inp, _Ranks(d, ctxs)
+    return jm, inp, _Ranks(d, ctx)
+
+
+@pytest.fixture(scope="module")
+def world(small_grid, tmp_path_factory):
+    return spawn_world(small_grid, tmp_path_factory, "density")
 
 
 def _unsharded(inp, kind):
@@ -551,134 +580,6 @@ def test_pooled_statistics_over_chain_group(world):
         assert torch.equal(torch.cat([g[k] for g in got], 1), want[k]), k
 
 
-def test_hmc_sharded_chains_move_and_recover(world):
-    """(d) test_parallel.py's sharded HMC checks at mesh (2, 2): every
-    chain moves, the step size is sane, the recorded logposts are the
-    density at the recorded draws, the acceptance and the age are right;
-    and the star shards of a block made the same density calls."""
-    from base_tpu_torch.inference import diagnostics as diag
-    from base_tpu_torch.model import posterior as post
-
-    _, inp, ranks = world
-    h = ranks[0]["hmc"]
-    z = h["zs"]
-    assert z.shape == (50, N_CHAINS, 9)
-    assert (np.ptp(z.numpy(), axis=0).max(axis=-1) > 1e-4).all()
-    assert float(h["step_size"]) > 1e-6
-    assert float(h["accept"]) > 0.3
-    model = _port_model(inp)
-    tr = post.default_transform(model)
-    with torch.no_grad():
-        lp = post.make_logpost_z_fn(model, tr)(z.reshape(-1, 9))
-    np.testing.assert_allclose(h["logposts"].numpy(),
-                               lp.reshape(50, N_CHAINS).numpy(),
-                               atol=0.5, rtol=1e-4)
-    xs = tr.forward(z)
-    assert abs(float(xs[..., 0].mean()) - TRUTH[0]) < 0.1
-    assert torch.isfinite(diag.split_rhat(xs[..., :5])).all()
-    calls = [r["hmc"]["calls"] for r in ranks]
-    assert calls[0] == calls[1] and calls[2] == calls[3] and calls[0] > 0
-
-
-def test_mh_sharded_runs_and_recovers(world):
-    """(d) test_parallel.py's sharded MH."""
-    s = world[2][0]["mh"]
-    xs = s["xs"].numpy()
-    assert xs.shape == (200, N_CHAINS, 9)
-    assert np.isfinite(s["logposts"].numpy()).all()
-    assert np.std(xs[-1, :, 0]) > 0
-    assert abs(xs[100:, :, 0].mean() - TRUTH[0]) < 0.1
-    assert 0.0 < float(s["accept"]) < 1.0
-
-
-def test_mh_sharded_burn_model(world):
-    """(d) useDuringBurnIn under a mesh: stages 1-2 on a 30-star subset
-    model sharded over the same star axis."""
-    x = world[2][0]["mh_burn"]["xs"].numpy()
-    assert x.shape[1] == N_CHAINS
-    assert np.isfinite(x).all()
-    assert x[:, :, 0].std() > 0
-    assert abs(x[:, :, 0].mean() - TRUTH[0]) < 0.15
-
-
-def test_nuts_sharded_runs_and_recovers(world):
-    """(d) test_parallel.py's sharded NUTS."""
-    from base_tpu_torch.model import posterior as post
-
-    _, inp, ranks = world
-    n = ranks[0]["nuts"]
-    assert n["zs"].shape == (30, N_CHAINS, 9)
-    assert float(n["accept"]) > 0.3
-    assert float(n["mean_leapfrogs"]) > 1.0
-    xs = post.default_transform(_port_model(inp)).forward(n["zs"])
-    assert abs(float(xs[..., 0].mean()) - TRUTH[0]) < 0.1
-
-
-def test_smc_sharded_cluster(world):
-    """(d) test_parallel.py's sharded SMC: 128 particles on each of 2
-    chain shards, stars summed inside the tempered density; and two
-    replicates folded on each chain shard."""
-    from base_tpu_torch.model import posterior as post
-
-    _, inp, ranks = world
-    s = ranks[0]["smc"]
-    assert s["particles"].shape == (256, 9)
-    assert float(s["beta"]) == 1.0
-    xs = post.default_transform(_port_model(inp)).forward(s["particles"])
-    assert torch.isfinite(xs).all()
-    assert abs(float(xs[:, 0].mean()) - TRUTH[0]) < 0.1
-    assert np.isfinite(float(s["log_evidence"]))
-    # Two replicates folded on each chain shard (32 particles of each):
-    # both reach beta = 1, with an evidence per replicate and its SE.
-    r = ranks[0]["smc_rep"]
-    assert r["particles"].shape == (2 * 64, 9)
-    assert r["betas"].shape == (2, 16) and float(r["beta"]) == 1.0
-    assert r["log_evidences"].shape == (2,)
-    assert np.isfinite(float(r["log_evidence_se"]))
-
-
-def test_vi_sharded_matches_single_process(world):
-    """(d) test_parallel.py's sharded VI against the port's VI in one
-    process: the pooled ELBO no worse, the means within 6 sd, and the
-    warm start a usable dense metric with the pinned dims at z0."""
-    from base_tpu_torch.inference import vi
-    from base_tpu_torch.model import posterior as post
-
-    _, inp, ranks = world
-    model = _port_model(inp)
-    tr = post.default_transform(model)
-    z0 = tr.inverse(torch.from_numpy(TRUTH))
-    one = vi.run_vi(post.make_logpost_z_fn(model, tr), z0,
-                    torch.Generator().manual_seed(31), VI_CFG)
-    v = ranks[0]["vi"]
-    assert np.isfinite(float(v["final_elbo"]))
-    assert float(v["final_elbo"]) > float(one.final_elbo) - 3.0
-    sd = np.sqrt(np.maximum(np.diag(vi.posterior_covariance(one).numpy()),
-                            1e-12))
-    free = np.asarray(post.free_mask(model)) > 0
-    dmu = np.abs(v["mu"].numpy() - one.mu.numpy())
-    assert (dmu[free] < 6 * sd[free]).all(), (dmu, sd)
-    assert v["draws"].shape == (N_CHAINS, 9) and v["cov"].shape == (9, 9)
-    assert (np.linalg.eigvalsh(v["cov"].numpy()) > 0).all()
-    assert torch.equal(v["draws"][:, ~free],
-                       z0[None, ~free].expand(N_CHAINS, -1))
-
-
-def test_star_shards_draw_identically(world):
-    """(e) Ranks 0 and 1 are the two star shards of chain block 0 (ranks
-    2 and 3 of block 1); after the chain-group gather each holds its star
-    index's copy of every chain: the copies agree bit for bit."""
-    ranks = world[2]
-    for a, b in ((0, 1), (2, 3), (0, 2)):
-        ra, rb = ranks[a], ranks[b]
-        assert torch.equal(ra["hmc"]["zs"], rb["hmc"]["zs"])
-        assert torch.equal(ra["hmc"]["logposts"], rb["hmc"]["logposts"])
-        assert torch.equal(ra["nuts"]["zs"], rb["nuts"]["zs"])
-        assert torch.equal(ra["mh"]["xs"], rb["mh"]["xs"])
-        assert torch.equal(ra["smc"]["particles"], rb["smc"]["particles"])
-        assert torch.equal(ra["vi"]["mu"], rb["vi"]["mu"])
-
-
 def test_mesh_1x1_equals_unsharded(world):
     """(f) A world of one in this process: the 1 x 1 mesh's density and
     gradient, and run_hmc_sharded, equal the unsharded path given the
@@ -712,56 +613,3 @@ def test_mesh_1x1_equals_unsharded(world):
     assert torch.equal(info["logposts"], want_info["logposts"])
     assert torch.equal(info["inv_mass"], want_info["inv_mass"])
     assert torch.equal(info["step_size"], want_info["step_size"])
-
-
-def test_sharded_checkpoint_resume_bit_identical(world):
-    """(g) At mesh (2, 2), a checkpointed run interrupted after chunk 1
-    (rank 0 wrote the whole run) and resumed on every rank equals an
-    uninterrupted run bit for bit, on every rank."""
-    for r in world[2]:
-        (zs, lps, eps, im), (zs2, lps2, eps2, im2) = r["resume"]
-        assert zs.shape == (30, N_CHAINS, 9)
-        assert torch.equal(zs, zs2) and torch.equal(lps, lps2)
-        assert torch.equal(eps, eps2) and torch.equal(im, im2)
-
-
-def test_longaxis_vi_into_chunked_sharded_hmc(world):
-    """(h) The long-axis recipe at mesh (2, 2): every density call of a
-    rank holds one block of chain_chunk of its 4 chains, and the calls
-    are the run's evaluations (the start, then l_max a transition) times
-    the blocks; the chains start at the VI draws (pinned dims at z0),
-    move, accept and recover the age; the star shards of a chain block
-    and the chain group's gathers agree bit for bit.  (Chunked against
-    unchunked runs: tests/test_torch_hmc.py.  On this CPU the gradient of
-    this model at 2 rows rounds a few ulp apart from its gradient at 4,
-    which HMC's trajectories amplify.)"""
-    from base_tpu_torch.inference import hmc
-    from base_tpu_torch.model import posterior as post
-
-    _, inp, ranks = world
-    h = LONGAXIS_HMC
-    local = N_CHAINS // 2
-    blocks = local // h["chain_chunk"]
-    evals = 1 + (h["n_warmup"] + h["n_samples"]) * h["l_max"]
-    assert blocks == hmc.chain_blocks(local, h["chain_chunk"]) == 2
-    for r in ranks:
-        a = r["longaxis"]
-        assert a["calls"] == evals * blocks
-        assert a["rows"] == evals * local
-    model = _port_model(inp)
-    tr = post.default_transform(model)
-    free = np.asarray(post.free_mask(model)) > 0
-    z0 = tr.inverse(torch.from_numpy(TRUTH))
-    a = ranks[0]["longaxis"]
-    assert torch.equal(a["draws"][:, ~free],
-                       z0[None, ~free].expand(N_CHAINS, -1))
-    z = a["zs"]
-    assert z.shape == (h["n_samples"], N_CHAINS, 9)
-    assert torch.isfinite(z).all()
-    assert (np.ptp(z.numpy(), axis=0)[:, free].min(axis=-1) > 1e-5).all()
-    assert float(a["accept"]) > 0.5
-    xs = tr.forward(z)
-    assert abs(float(xs[..., 0].mean()) - TRUTH[0]) < 0.1
-    for i, j in ((0, 1), (2, 3), (0, 2)):
-        assert torch.equal(ranks[i]["longaxis"]["zs"],
-                           ranks[j]["longaxis"]["zs"])
