@@ -68,6 +68,12 @@
 //   arrays live in registers.  From B = 23 the warps' partials pass 48 KB
 //   of shared memory, which the launch asks for (`allow_smem`).
 //
+// Star sets (the port's counterpart of base_tpu's vmap over data sets):
+// obs, iv [G, S, B] and log_norm [G, S] beside tables [C, T, B], chain c
+// on set c / (C / G).  Both kernels only offset their star rows by the
+// chain's set (`cps`: chains per set); at G = 1 the offset is 0 and every
+// float operation is the one-set kernel's.
+//
 // Bands in kernel 3: o[] and w[] are sized by a band class (common.cuh),
 // one instance for B <= 16 and one for 17..32; the staged tile is sized
 // for 48 KB at any B up to 32 (`fwd_tile`).
@@ -109,7 +115,7 @@ marglik_fwd_kernel(const float* __restrict__ obs,
                                    const float* __restrict__ logw,
                                    const float* __restrict__ mask,
                                    float* __restrict__ out, int S, int T,
-                                   int B, int TS) {
+                                   int B, int TS, int cps) {
   extern __shared__ float sh[];
   const int TP = TS + 1;                    // padded row: no bank conflicts
   float* s_lo = sh;                         // [B, TP]
@@ -120,11 +126,12 @@ marglik_fwd_kernel(const float* __restrict__ obs,
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
   const bool active = s < S;                // warp-uniform
+  const size_t row = static_cast<size_t>(c / cps) * S + s;  // set's star
   float o[MB], w[MB];
 #pragma unroll
   for (int b = 0; b < MB; ++b) {
-    o[b] = (active && b < B) ? obs[static_cast<size_t>(s) * B + b] : 0.0f;
-    w[b] = (active && b < B) ? iv[static_cast<size_t>(s) * B + b] : 0.0f;
+    o[b] = (active && b < B) ? obs[row * B + b] : 0.0f;
+    w[b] = (active && b < B) ? iv[row * B + b] : 0.0f;
   }
   const size_t tb0 = static_cast<size_t>(c) * T * B;
   const size_t t0c = static_cast<size_t>(c) * T;
@@ -178,7 +185,7 @@ marglik_fwd_kernel(const float* __restrict__ obs,
   }
   if (lane != 0) return;
   const float v = acc > 0.0f ? m + logf(acc + 1e-15f) : NEG_INF;
-  out[static_cast<size_t>(c) * S + s] = v + log_norm[s];
+  out[static_cast<size_t>(c) * S + s] = v + log_norm[row];
 }
 
 // ops/marglik.py `_zero_weight`: the softmax weight of an element whose
@@ -232,7 +239,7 @@ __device__ __forceinline__ bool skip_group(const float* o, const float* w,
 struct BwdArgs {
   const float *obs, *iv, *log_norm, *lo, *hi, *logw, *mask, *out, *gout;
   float *dlo, *dhi, *dlogw;
-  int S, T;
+  int S, T, cps;  // cps: chains per star set
 };
 
 // Floats of shared memory: the staged star tile and the group's band
@@ -265,6 +272,7 @@ marglik_bwd_kernel(const BwdArgs a) {
   float* s_mlw = s_mx + B;                  // [1] group's largest logw
   const int S = a.S, T = a.T;
   const int c = blockIdx.y;
+  const size_t set0 = static_cast<size_t>(c / a.cps) * S;  // set's stars
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int t0 = blockIdx.x * 32;
@@ -309,12 +317,12 @@ marglik_bwd_kernel(const BwdArgs a) {
     const int ns = min(BWD_STAR_TILE, S - s0);
     __syncthreads();  // previous tile fully consumed
     for (int i = threadIdx.x; i < ns * B; i += blockDim.x) {
-      s_o[i] = a.obs[static_cast<size_t>(s0) * B + i];
-      s_w[i] = a.iv[static_cast<size_t>(s0) * B + i];
+      s_o[i] = a.obs[(set0 + s0) * B + i];
+      s_w[i] = a.iv[(set0 + s0) * B + i];
     }
     for (int i = threadIdx.x; i < ns; i += blockDim.x) {
       const size_t k = static_cast<size_t>(c) * S + s0 + i;
-      s_out[i] = a.out[k] - a.log_norm[s0 + i];
+      s_out[i] = a.out[k] - a.log_norm[set0 + s0 + i];
       s_g[i] = a.gout[k];
     }
     __syncthreads();
@@ -424,8 +432,11 @@ extern "C" int btt_marglik_fwd(const float* obs, const float* iv,
                                const float* log_norm, const float* lo,
                                const float* hi, const float* logw,
                                const float* mask, float* out, int C, int S,
-                               int T, int B, int device, void* stream) {
+                               int T, int B, int G, int device,
+                               void* stream) {
   cudaSetDevice(device);
+  if (G < 1 || C % G != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int cps = C / G;
   const int TS = fwd_tile(T, B);
   dim3 grid((S + FWD_WARPS - 1) / FWD_WARPS, C);
   const size_t smem =
@@ -433,10 +444,10 @@ extern "C" int btt_marglik_fwd(const float* obs, const float* iv,
   const auto st = static_cast<cudaStream_t>(stream);
   if (B <= btt::NARROW_B)
     marglik_fwd_kernel<btt::NARROW_B><<<grid, FWD_WARPS * 32, smem, st>>>(
-        obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS);
+        obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS, cps);
   else
     marglik_fwd_kernel<btt::MAX_B><<<grid, FWD_WARPS * 32, smem, st>>>(
-        obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS);
+        obs, iv, log_norm, lo, hi, logw, mask, out, S, T, B, TS, cps);
   return static_cast<int>(cudaGetLastError());  // launch status
 }
 
@@ -446,9 +457,10 @@ extern "C" int btt_marglik_bwd(const float* obs, const float* iv,
                                const float* mask, const float* out,
                                const float* gout, float* dlo, float* dhi,
                                float* dlogw, int C, int S, int T, int B,
-                               int device, void* stream) {
+                               int G, int device, void* stream) {
   cudaSetDevice(device);
+  if (G < 1 || C % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{obs, iv, log_norm, lo, hi, logw, mask, out, gout,
-                  dlo, dhi, dlogw, S, T};
+                  dlo, dhi, dlogw, S, T, C / G};
   return dispatch_bwd<1>(B, a, C, static_cast<cudaStream_t>(stream));
 }

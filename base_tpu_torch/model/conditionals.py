@@ -28,6 +28,7 @@ from base_tpu_torch.model import ifmr as ifmr_mod
 from base_tpu_torch.model import likelihood as lk
 from base_tpu_torch.model import priors
 from base_tpu_torch.model import wd as wd_mod
+from base_tpu_torch.model.stardata import require_one_set
 from base_tpu_torch.model.posterior import SinglePopModel
 from base_tpu_torch.ops.marglik import _ALPHA_EPS, _abg
 from base_tpu_torch.ops.special import NEG_INF, masked_logsumexp
@@ -177,6 +178,7 @@ def sample_ms_masses(model: SinglePopModel, params_draws: torch.Tensor,
                      draw_chunk: int | None = 64) -> MSMassSamples:
     """Exact (mass1, mass ratio) conditional draws for every (posterior
     draw, MS star): params_draws [D, 9] -> fields [D, S]."""
+    require_one_set(model.stars, "sample_ms_masses")
     return _blocks(lambda p, g: _one_block_ms(model, p, g), params_draws,
                    gen, draw_chunk)
 

@@ -12,7 +12,10 @@ base_tpu.model.likelihood), batched over chains.
 3. The field-star mixture: logaddexp of the cluster marginal against the
    uniform-CMD field density, weighted by the membership prior.
 
-Tables are [C, T, B]; the photometry [S, B] is shared by the chains.  The
+Tables are [C, T, B]; the photometry [S, B] is shared by the chains, or,
+as star sets [G, S, B] (stardata.stack_ms_stars), chain c is scored on set
+c // (C // G) and every function here returns its [C] or [C, S] as if each
+chain had its own set's stars.  The
 fused table build and marginal go through the CUDA kernels on a CUDA
 tensor and through their plain versions on a CPU tensor (ops.table,
 ops.marglik).
@@ -30,6 +33,7 @@ from base_tpu_torch.ops.marglik import (
     _ALPHA_EPS,
     _FLAT_EPS,
     _abg,
+    chain_rows,
     fused_log_marginals,
     marglik_fwd_plain,
 )
@@ -244,7 +248,9 @@ def segment_logintegrals(stars: MSStars, table: SegmentTable):
     log_i = -0.5 * resid + 0.5 * (LOG_2PI - torch.log(ac)) + log_phi
     flat = -0.5 * (gamma - beta + 0.25 * alpha)
     out = torch.where(alpha > _FLAT_EPS, log_i, flat)
-    return out + stars.log_norm[:, None]
+    log_norm = (chain_rows(stars.log_norm, out.shape[0]) if stars.stacked
+                else stars.log_norm)
+    return out + log_norm[..., None]
 
 
 def ms_star_log_marginals(stars: MSStars, table: SegmentTable):
@@ -258,12 +264,18 @@ def field_mixture_total(stars: MSStars, log_clust: torch.Tensor):
     """Field-star mixture + sum over stars, given per-star cluster
     marginals [C, S]: density_s = CMprior_s L_cluster_s + (1 - CMprior_s)
     L_field_s.  Returns [C]."""
-    a = stars.log_cm + log_clust
-    b = stars.log_1m_cm + stars.field_logdens
+    log_cm, log_1m_cm = stars.log_cm, stars.log_1m_cm
+    field, star_mask = stars.field_logdens, stars.star_mask
+    if stars.stacked:   # each chain's own set
+        C = log_clust.shape[0]
+        log_cm, log_1m_cm, field, star_mask = (
+            chain_rows(x, C) for x in (log_cm, log_1m_cm, field, star_mask))
+    a = log_cm + log_clust
+    b = log_1m_cm + field
     m = torch.maximum(a, b)
     per_star = m + torch.log(torch.exp(a - m) + torch.exp(b - m))
     per_star = per_star.clamp_min(NEG_INF)
-    return (per_star * stars.star_mask).sum(-1)
+    return (per_star * star_mask).sum(-1)
 
 
 def mass_prior_log_norm(table: SegmentTable) -> torch.Tensor:

@@ -31,6 +31,7 @@ from base_tpu_torch.model.posterior import (
     ms_table,
     param_bounds,
 )
+from base_tpu_torch.model.stardata import require_one_set
 from base_tpu_torch.ops.special import NEG_INF
 from base_tpu_torch.utils.transforms import (
     IntervalTransform,
@@ -50,7 +51,12 @@ MP_PARAM_NAMES = C.PARAM_NAMES + ("Y_A", "Y_B", "lambda")
 class MultiPopModel(ClusterModel):
     """Two-population model state: priors over the 12-vector.  The WD
     branch is optional, as in SinglePopModel: WD stars evaluate against
-    both populations' precursor chains and mix with the same lambda."""
+    both populations' precursor chains and mix with the same lambda.  It
+    takes one star set."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        require_one_set(self.stars, "the two-population model")
 
 
 def make_multipop_model(*args, device: torch.device | str,

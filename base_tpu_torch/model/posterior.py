@@ -6,6 +6,12 @@ when the model has a WD branch) -> field mixture, for a batch of chains at
 once.  Samplers differentiate it with
 `torch.autograd.grad(lp.sum(), z)`, valid because the chains are
 independent.
+
+A single-population MS model may hold star sets (stardata.stack_ms_stars,
+G data sets): its density then scores chain c on set c // (C // G), C a
+multiple of G, and the priors and the transform are shared.  This is the
+port's counterpart of base_tpu's `vmap` over data sets (simulation-based
+calibration).  The WD branch and two populations take one set.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from base_tpu_torch.grids.wd_cooling import WdCoolingGrid
 from base_tpu_torch.model import likelihood as lk
 from base_tpu_torch.model import wd as wd_mod
 from base_tpu_torch.model.priors import ClusterPriors
-from base_tpu_torch.model.stardata import MSStars
+from base_tpu_torch.model.stardata import MSStars, require_one_set
 from base_tpu_torch.ops.special import NEG_INF
 from base_tpu_torch.utils.transforms import (
     IntervalTransform,
@@ -66,6 +72,9 @@ class ClusterModel:
         if self.grid.device.type == "cuda" and not self.use_pallas:
             raise ValueError("a CUDA model runs through the kernels: "
                              "use_pallas=False is for CPU tensors only")
+        require_one_set(self.wd_stars, "the WD branch")
+        if self.wd_stars is not None:
+            require_one_set(self.stars, "a model with WD stars")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +167,8 @@ def ms_table(model: ClusterModel, params: torch.Tensor):
 
 
 def log_lik(model: SinglePopModel, params: torch.Tensor):
-    """Total per-star log likelihood [C] and the bounds flag [C]."""
+    """Total per-star log likelihood [C] and the bounds flag [C]; with star
+    sets, each chain's on its own set."""
     table, iso = ms_table(model, params)
     ll = lk.ms_total_loglik(model.stars, table, model.use_pallas)
     if model.wd_stars is not None:

@@ -2,10 +2,14 @@
 
 Struct-of-arrays over S stars; unobserved bands (sigma <= 0) carry
 1/s^2 = 0.  The photometry is data shared by every chain: no chain axis.
+Star sets (`stack_ms_stars`) put a leading [G] axis on every field: G data
+sets of equal padded S, as base_tpu stacks them to `vmap` over data sets;
+the density then scores chain c on set c // (C // G).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -42,11 +46,43 @@ class MSStars:
 
     @property
     def n_stars(self) -> int:
-        return self.obs_mags.shape[0]
+        return self.obs_mags.shape[-2]
 
     @property
     def n_bands(self) -> int:
-        return self.obs_mags.shape[1]
+        return self.obs_mags.shape[-1]
+
+    @property
+    def stacked(self) -> bool:
+        """True for star sets: every field has a leading [G] axis."""
+        return self.obs_mags.ndim == 3
+
+    @property
+    def n_sets(self) -> int:
+        """G, the star sets (1 for one set)."""
+        return self.obs_mags.shape[0] if self.stacked else 1
+
+
+def stack_ms_stars(sets: Sequence[MSStars]) -> MSStars:
+    """G one-set containers of equal padded S (and B) as star sets: every
+    field stacked on a new leading [G] axis."""
+    if not sets or any(st.stacked for st in sets):
+        raise ValueError("stack_ms_stars takes one or more one-set MSStars")
+    shapes = {tuple(st.obs_mags.shape) for st in sets}
+    if len(shapes) != 1:
+        raise ValueError(f"star sets must share the padded [S, B]: got "
+                         f"{sorted(shapes)}")
+    return MSStars(**{f.name: torch.stack([getattr(st, f.name)
+                                           for st in sets])
+                      for f in dataclasses.fields(MSStars)})
+
+
+def require_one_set(stars: MSStars | None, what: str) -> None:
+    """Raise if `stars` are star sets: `what` takes one set."""
+    if stars is not None and stars.stacked:
+        raise ValueError(f"{what} takes one star set, got {stars.n_sets} "
+                         f"stacked sets (star sets run only through the "
+                         f"single-population MS density)")
 
 
 def make_ms_stars(

@@ -36,12 +36,13 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: tensor pointers, then int sizes, then device and stream.
+# C entry points: tensor pointers, then int sizes, then device and stream
+# (kernels 3 and 4 take the star sets' count after the four sizes).
 _SIGNATURES = {
     "btt_table_fwd": [_P] * 9 + [_I] * 4 + [_I, _P],
     "btt_table_bwd": [_P] * 18 + [_I] * 4 + [_I, _P],
-    "btt_marglik_fwd": [_P] * 8 + [_I] * 4 + [_I, _P],
-    "btt_marglik_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
+    "btt_marglik_fwd": [_P] * 8 + [_I] * 5 + [_I, _P],
+    "btt_marglik_bwd": [_P] * 12 + [_I] * 5 + [_I, _P],
     "btt_marglik_mm_fwd": [_P] * 9 + [_I] * 4 + [_I, _P],
     "btt_marglik_mm_bwd": [_P] * 12 + [_I] * 4 + [_I, _P],
 }

@@ -15,6 +15,12 @@ beta, gamma) = (-<t^2>/2, <t>, -1/2) from the [0,1]-truncated Gaussian
 moments (`marglik_bwd_plain` beside kernel 4).  The photometry is data and
 gets no cotangent; d out / d log_norm is the identity.
 
+Star sets (the port's counterpart of base_tpu's `vmap` over data sets):
+obs and inv_var [G, S, B] and log_norm [G, S] beside tables [C, T, B],
+with C a multiple of G, score chain c on set c // (C // G) (`chain_rows`).
+Kernels 3 and 4 and their plain versions take both forms; one set [S, B]
+runs exactly the one-set code.  The matmul form takes one set.
+
 Almost every softmax weight is an exact 0.0 in float32 (98% at config-1):
 `marglik_bwd_group_skip` (before any band contraction, for 32 segments at
 once) and `marglik_bwd_skip` (after it, per element) are the rules by which
@@ -49,12 +55,37 @@ marglik_mm_fwd_launches = 0
 marglik_mm_bwd_launches = 0
 
 
+def chain_rows(x: torch.Tensor, C: int) -> torch.Tensor:
+    """Per-set rows x [G, ...] as the C chains see them, [C, ...]: chain c
+    takes set c // (C // G)."""
+    G = x.shape[0]
+    if G < 1 or C % G:
+        raise ValueError(f"{C} chains do not split evenly over {G} star "
+                         f"sets")
+    return x if G == C else x.repeat_interleave(C // G, 0)
+
+
+def _per_chain(x: torch.Tensor, C: int, ndim: int) -> torch.Tensor:
+    """Star data as the chains see it: one set (`ndim` axes) as it is, to
+    broadcast over the chains; star sets (a leading [G] axis) by
+    chain_rows."""
+    return x if x.ndim == ndim else chain_rows(x, C)
+
+
+def _one_set(obs: torch.Tensor, what: str) -> None:
+    if obs.ndim != 2:
+        raise ValueError(f"{what} takes one star set (obs [S, B]), got obs "
+                         f"{tuple(obs.shape)}: star sets run through "
+                         f"kernels 3 and 4 (matmul=False)")
+
+
 def _abg(obs, inv_var, lo, hi):
     """Residual-form band contractions alpha, beta, gamma [C, S, T] (and
     the pieces the backward reuses)."""
+    C = lo.shape[0]
     d = (hi - lo)[:, None]                               # [C, 1, T, B]
-    r = obs[None, :, None, :] - lo[:, None]              # [C, S, T, B]
-    iv = inv_var[None, :, None, :]                       # [1, S, 1, B]
+    r = _per_chain(obs, C, 2)[..., None, :] - lo[:, None]  # [C, S, T, B]
+    iv = _per_chain(inv_var, C, 2)[..., None, :]         # [(C,) S, 1, B]
     alpha = (iv * d * d).sum(-1)
     beta = (iv * r * d).sum(-1)
     gamma = (iv * r * r).sum(-1)
@@ -95,6 +126,7 @@ def _abg_mm(obs, inv_var, lo, hi):
     float32 rounding, which at wide B reaches whole nats (~ulp of
     sum_b iv obs^2), is the same in both and the kernels are held to this
     version as tightly as kernel 3 to its own."""
+    _one_set(obs, "the matmul form")
     ivo = inv_var * obs                                  # [S, B]
     c0 = obs.new_zeros(obs.shape[0])
     for b in range(obs.shape[1]):
@@ -134,8 +166,9 @@ def _core_width(alpha, beta, gamma, logw, mask):
 
 def marglik_fwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask):
     """Plain version of kernel 3: [C, S].  `mask` [C, T] is bool or a
-    {0, 1} float.  Linear-space accumulation: exp(core - m) * width summed
-    over segments, one log per star."""
+    {0, 1} float; obs, inv_var and log_norm one star set or star sets.
+    Linear-space accumulation: exp(core - m) * width summed over
+    segments, one log per star."""
     alpha, beta, gamma, _, _, _ = _abg(obs, inv_var, lo, hi)
     return _log_marginals(alpha, beta, gamma, log_norm, logw, mask)
 
@@ -158,7 +191,7 @@ def _log_marginals(alpha, beta, gamma, log_norm, logw, mask):
     # floor makes cotangents that overflow against the rsqrt/erf factors.
     out = m.squeeze(-1) + torch.log(s + 1e-15)
     out = torch.where(s > 0, out, torch.full_like(out, NEG_INF))
-    return out + log_norm
+    return out + _per_chain(log_norm, out.shape[0], 1)
 
 
 def marglik_bwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask, out, g):
@@ -181,6 +214,7 @@ def marglik_mm_bwd_plain(obs, inv_var, log_norm, lo, hi, logw, mask, out,
     the expanded contractions, the star axis contracted by five products
     (base_tpu's `_bwd_kernel` under `mm`): A1 = iv^T ga, B1 = iv^T gb, B2 =
     (iv obs)^T gb, C1 = iv^T gc, C2 = (iv obs)^T gc, each [C, B, T]."""
+    _one_set(obs, "the matmul form")
     gw, ga, gb, gc = _cotangent_weights(*_abg_mm(obs, inv_var, lo, hi),
                                         log_norm, logw, mask, out, g)
     ivT = inv_var.T
@@ -203,7 +237,7 @@ def _cotangent_weights(alpha, beta, gamma, log_norm, logw, mask, out, g):
     core, width, aux = _core_width(alpha, beta, gamma, logw[:, None, :], mask)
     u0, u1, width_s, unear_sq, live, mu, rsq = aux
     # exp(core - out') * width = term / sum: the softmax weight.
-    outp = (out - log_norm)[:, :, None]
+    outp = (out - _per_chain(log_norm, out.shape[0], 1))[:, :, None]
     gw = g[:, :, None] * torch.exp(core - outp) * width
     gw = torch.where(mask, gw, torch.zeros_like(gw))
     phi_s0 = INV_SQRT_2PI * torch.exp(
@@ -254,7 +288,8 @@ def marglik_bwd_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
     alpha, beta, gamma, _, _, _ = _abg(obs, inv_var, lo, hi)
     u = (beta / alpha.clamp_min(_ALPHA_EPS)).clamp(0.0, 1.0)
     chi2c = (alpha * u - 2.0 * beta) * u + gamma
-    zero = _zero_weight(chi2c, logw[:, None, :], (out - log_norm)[:, :, None],
+    outp = out - _per_chain(log_norm, out.shape[0], 1)
+    zero = _zero_weight(chi2c, logw[:, None, :], outp[:, :, None],
                         gamma.abs() + 2.0 * beta.abs() + alpha)
     return (mask > 0.5)[:, None, :] & zero
 
@@ -309,13 +344,13 @@ def marglik_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
     logw and (Gm, Bt, A) in the slack.  A group with no live segment gives
     NaN and is never marked.  The bands are summed in order, so that
     csrc/marglik.cu can repeat these float32 operations exactly."""
-    B = lo.shape[2]
+    C, _, B = lo.shape
     mn, mx, mlw = _group_ranges(lo, hi, logw, mask)
-    lb = gm = bt = a = lo.new_zeros((lo.shape[0], obs.shape[0],
-                                     mlw.shape[2]))
+    lb = gm = bt = a = lo.new_zeros((C, obs.shape[-2], mlw.shape[2]))
+    obs, inv_var = _per_chain(obs, C, 2), _per_chain(inv_var, C, 2)
     for b in range(B):
-        o = obs[None, :, None, b]                              # [1, S, 1]
-        w = inv_var[None, :, None, b]
+        o = obs[..., :, None, b]                         # [(C,) S, 1]
+        w = inv_var[..., :, None, b]
         lo_b, hi_b = mn[..., b], mx[..., b]
         dist = torch.maximum(lo_b - o, o - hi_b).clamp_min(0.0)
         r = torch.maximum((o - lo_b).abs(), (o - hi_b).abs())
@@ -324,8 +359,8 @@ def marglik_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask, out):
         gm = gm + w * r * r
         bt = bt + w * r * width
         a = a + w * width * width
-    return _zero_weight(lb, mlw, (out - log_norm)[:, :, None],
-                        gm + 2.0 * bt + a)
+    outp = out - _per_chain(log_norm, C, 1)
+    return _zero_weight(lb, mlw, outp[:, :, None], gm + 2.0 * bt + a)
 
 
 # Kernel 4m's group rule (below): alpha, beta and gamma of the matmul form
@@ -354,6 +389,7 @@ def marglik_mm_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask,
     _MM_SKIP_ULPS) 2^-24) E.  A group with no live segment gives NaN and is
     never marked.  The bands are summed in order, so that
     csrc/marglik_mm.cu can repeat these float32 operations exactly."""
+    _one_set(obs, "the matmul form")
     B = lo.shape[2]
     mn, mx, mlw = _group_ranges(lo, hi, logw, mask)
     lb = e = lo.new_zeros((lo.shape[0], obs.shape[0], mlw.shape[2]))
@@ -373,43 +409,53 @@ def marglik_mm_bwd_group_skip(obs, inv_var, log_norm, lo, hi, logw, mask,
 _NAMES = ("obs", "inv_var", "log_norm", "lo", "hi", "logw", "maskf")
 
 
-def _checked(args):
+def _checked(args, sets: bool):
+    """(C, S, T, B) and the sizes the C entry point takes: those and, for
+    kernels 3 and 4 (`sets`), the star sets' count G."""
     obs, lo = args[0], args[3]
-    S, B = obs.shape
+    if not sets:
+        _one_set(obs, "the matmul form")
+    S, B = obs.shape[-2:]
     C, T = lo.shape[:2]
+    G = obs.shape[0] if obs.ndim == 3 else 1
     build.check_bands("marginal", B)
     build.check_chains(C)
-    shapes = [(S, B), (S, B), (S,), (C, T, B), (C, T, B), (C, T), (C, T)]
+    if C % G:
+        raise ValueError(f"{C} chains do not split evenly over {G} star "
+                         f"sets")
+    star = (G, S) if obs.ndim == 3 else (S,)
+    shapes = [(*star, B), (*star, B), star, (C, T, B), (C, T, B), (C, T),
+              (C, T)]
     for name, t, shape in zip(_NAMES, args, shapes):
         build.check(name, t, shape)
-    return C, S, T, B
+    return (C, S, T, B), (C, S, T, B, G) if sets else (C, S, T, B)
 
 
-def _launch_fwd(symbol, args, scratch=None):
-    C, S, T, B = _checked(args)
+def _launch_fwd(symbol, args, sets: bool, scratch=None):
+    (C, S, T, _), sizes = _checked(args, sets)
     out = torch.empty((C, S), dtype=torch.float32, device=args[0].device)
     extra = [] if scratch is None else [torch.empty(
         scratch(C, S, T), dtype=torch.float32, device=args[0].device)]
-    build.launch(symbol, [*args, out, *extra], (C, S, T, B))
+    build.launch(symbol, [*args, out, *extra], sizes)
     return out
 
 
-def _launch_bwd(symbol, args, out, g):
-    C, S, T, B = _checked(args)
+def _launch_bwd(symbol, args, out, g, sets: bool):
+    (C, S, _, _), sizes = _checked(args, sets)
     build.check("out", out, (C, S))
     build.check("g", g, (C, S))
     dlo = torch.empty_like(args[3])
     dhi = torch.empty_like(args[4])
     dlogw = torch.empty_like(args[5])
-    build.launch(symbol, [*args, out, g, dlo, dhi, dlogw], (C, S, T, B))
+    build.launch(symbol, [*args, out, g, dlo, dhi, dlogw], sizes)
     return dlo, dhi, dlogw
 
 
 def marglik_fwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf):
-    """Kernel 3 on the card: [C, S]."""
+    """Kernel 3 on the card: [C, S], over one star set or star sets."""
     global marglik_fwd_launches
     out = _launch_fwd("btt_marglik_fwd",
-                      (obs, inv_var, log_norm, lo, hi, logw, maskf))
+                      (obs, inv_var, log_norm, lo, hi, logw, maskf), True)
     marglik_fwd_launches += 1
     return out
 
@@ -418,7 +464,8 @@ def marglik_bwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf, out, g):
     """Kernel 4 on the card: (dlo, dhi, dlogw) as marglik_bwd_plain."""
     global marglik_bwd_launches
     grads = _launch_bwd("btt_marglik_bwd",
-                        (obs, inv_var, log_norm, lo, hi, logw, maskf), out, g)
+                        (obs, inv_var, log_norm, lo, hi, logw, maskf), out, g,
+                        True)
     marglik_bwd_launches += 1
     return grads
 
@@ -430,7 +477,7 @@ def marglik_mm_fwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf):
     kernel 3m."""
     global marglik_mm_fwd_launches
     out = _launch_fwd("btt_marglik_mm_fwd",
-                      (obs, inv_var, log_norm, lo, hi, logw, maskf),
+                      (obs, inv_var, log_norm, lo, hi, logw, maskf), False,
                       scratch=build.marglik_mm_fwd_scratch)
     marglik_mm_fwd_launches += 1
     return out
@@ -441,7 +488,8 @@ def marglik_mm_bwd_cuda(obs, inv_var, log_norm, lo, hi, logw, maskf, out,
     """Kernel 4m on the card: (dlo, dhi, dlogw) as marglik_mm_bwd_plain."""
     global marglik_mm_bwd_launches
     grads = _launch_bwd("btt_marglik_mm_bwd",
-                        (obs, inv_var, log_norm, lo, hi, logw, maskf), out, g)
+                        (obs, inv_var, log_norm, lo, hi, logw, maskf), out, g,
+                        False)
     marglik_mm_bwd_launches += 1
     return grads
 
@@ -472,14 +520,18 @@ class _FusedMarglik(torch.autograd.Function):
             dlo, dhi, dlogw = kernel(*args, out, g.contiguous())
         else:
             dlo, dhi, dlogw = plain(*args, out, g)
-        dln = g.sum(0) if ctx.needs_input_grad[3] else None
+        dln = None
+        if ctx.needs_input_grad[3]:   # g summed over each set's chains
+            ln = args[2]
+            dln = g.sum(0) if ln.ndim == 1 else g.reshape(
+                ln.shape[0], -1, g.shape[1]).sum(1)
         return None, None, None, dln, dlo, dhi, dlogw, None
 
 
 def fused_log_marginals(
-    obs: torch.Tensor,       # [S, B]
-    inv_var: torch.Tensor,   # [S, B]
-    log_norm: torch.Tensor,  # [S]
+    obs: torch.Tensor,       # [S, B] or star sets [G, S, B]
+    inv_var: torch.Tensor,   # [S, B] or [G, S, B]
+    log_norm: torch.Tensor,  # [S] or [G, S]
     lo: torch.Tensor,        # [C, T, B]
     hi: torch.Tensor,        # [C, T, B]
     logw: torch.Tensor,      # [C, T]
@@ -487,13 +539,15 @@ def fused_log_marginals(
     matmul: bool | None = None,
 ) -> torch.Tensor:
     """Per-star log marginal cluster likelihood of every chain: [C, S].
-    Differentiable with respect to log_norm, lo, hi and logw.
+    Differentiable with respect to log_norm, lo, hi and logw.  With star
+    sets, chain c is scored on set c // (C // G).
 
     `matmul`: base_tpu's argument, the expanded form (kernels 3m, 4m).  obs,
     lo and hi are first centered per band (`center_bands`: a constant that
     cancels from every obs - model difference) to bound the expansion's
     float32 cancellation.  Default False, as in base_tpu."""
     if matmul:
+        _one_set(obs, "the matmul form")
         obs, lo, hi = center_bands(obs, inv_var, lo, hi)
     return _FusedMarglik.apply(bool(matmul), obs, inv_var, log_norm, lo, hi,
                                logw, maskf)

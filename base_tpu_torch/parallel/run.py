@@ -59,7 +59,7 @@ from base_tpu_torch.inference import smc as smc_mod
 from base_tpu_torch.inference import vi as vi_mod
 from base_tpu_torch.model import multipop as mp
 from base_tpu_torch.model import posterior as post
-from base_tpu_torch.model.stardata import MSStars
+from base_tpu_torch.model.stardata import MSStars, require_one_set
 from base_tpu_torch.ops.special import NEG_INF
 from base_tpu_torch.parallel import comm
 from base_tpu_torch.parallel.mesh import (CHAIN_AXIS, STAR_AXIS, Mesh,
@@ -119,6 +119,7 @@ def _local_stars(stars: MSStars | None, mesh: Mesh) -> MSStars | None:
     shards (a copy: the whole set can be dropped)."""
     if stars is None:
         return None
+    require_one_set(stars, "the star-sharded density")
     n = mesh.n_star_shards
     S_pad = pad_to_multiple(stars.n_stars, n)
     if S_pad != stars.n_stars:

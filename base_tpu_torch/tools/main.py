@@ -290,7 +290,7 @@ def _build_model_from_phot(s: Settings, table: photio.PhotTable,
                            device: torch.device):
     from base_tpu_torch.grids.load import make_model
     from base_tpu_torch.model import posterior as post
-    from base_tpu_torch.model.stardata import make_ms_stars
+    from base_tpu_torch.model.stardata import make_ms_stars, require_one_set
 
     bundle = make_model(s, device=device)
     stage = table.stage
@@ -309,6 +309,7 @@ def _build_model_from_phot(s: Settings, table: photio.PhotTable,
     ms = make_ms_stars(ms_rows.mags, ms_rows.sigmas, cm_prior=ms_rows.cm_prior,
                        field_mag_range=frange,
                        sigma_model=s.mcmc.sigmaModel, device=device)
+    require_one_set(ms, "the CLI (one --photFile)")
     wds = None
     if wd_rows.n_stars > 0:
         wds = make_ms_stars(

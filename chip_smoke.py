@@ -97,8 +97,8 @@ time with chain_chunk and without, and the age beside 11a's and 11b's.
 Phase 12 (`run_cli`) drives the port's CLI, `base_tpu_torch.tools.main`,
 in-process (so the wrappers' launch counters see it) at the widths of
 conf/base9.yaml: 100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, upsample
-4, 64 chains, dense metric, lMax 48, cut only in depth (16 + 16 draws a
-chain).  12a: simulate -> scatter; the model the CLI builds from that
+4, 64 chains, dense metric, cut in depth (16 + 16 draws a chain, lMax
+24).  12a: simulate -> scatter; the model the CLI builds from that
 .phot (n_q 16, upsample 4, 4 WDs) at its 64 chains, each kernel against
 its plain version (kernels 3-4 on the MS and the WD tables), and log_post
 + gradient on 16 of those chains against the CPU plain path; single-pop
@@ -172,6 +172,23 @@ l_max 48, N_WARMUP15 + N_SAMPLES15), every kernel launched once a density
 call, held to the golden by the same rule, with split R-hat, ESS and z
 for each free parameter.
 
+Phase 16 (`run_sbc`) is the simulation-based calibration (SBC) path,
+the port's counterpart of base_tpu's vmap over data sets
+(tests/test_calibration.py; scripts/torch_sbc.py runs its three checks
+whole): models over base_tpu's 64 SBC data sets (tests/data/sbc_stars.npz)
+as star sets, one chain a set.  16a: kernels 3-4 over star sets against
+their plain versions (MARGLIK_TOL) at G = C = 64 (32 stars, no binaries)
+and at G = 8 with 8 chains a set (20 stars, binaries, n_q 8), against
+one-set launches on a set's chains and at G = 1 against the one-set
+kernel, both bit for bit; their times beside the one-set form's and their
+bound.  16b: the stacked density against the CPU plain path.  16c:
+run_hmc(replicas=64) on the binaries model (N_WARMUP16 + N_SAMPLES16,
+l_max L_MAX16) and adaptive MH on the MS model (MH16), each run again with
+one set's stars moved: finite draws, one launch of each kernel the path
+runs per evaluation, and every other replica's draws bit for bit the
+same.  Phases 12a's, 13b's and 14c's single-pop runs take l_max 24
+(conf/base9.yaml's 48 until phase 16 joined).
+
 Every profiler pass (phases 6, 7e and 8e) is padded with idle host time
 (PROFILE_PAD_S) and must hold the records of at least 99% of the launches
 that the kernel wrappers counted in it.
@@ -186,9 +203,11 @@ config 4's launches and times at its shapes, the launches of phases 9, 10,
 (`launches_wide`), the times and bounds at
 config 5's SMC and VI shapes and at B = 29 (`b29`), as extra fields;
 kernels 3m and 4m have rows of their own; `launches_parallel`: phase
-14's HMC; `launches_golden`: phase 15's MH and HMC), before that the
-`golden` JSON of phase 15 with every phase's wall, the `parallel` JSON of
-phase 14, the `wide` JSON of
+14's HMC; `launches_golden`: phase 15's MH and HMC; `launches_sbc`:
+phase 16c's HMC and MH; kernels 3-4's `sbc`: 16a's times at the SBC
+shapes), before that the `sbc` JSON of phase 16 with every phase's wall,
+the `golden` JSON of phase 15, the `parallel` JSON of phase 14, the `wide`
+JSON of
 phase 13, and before that the `cli` JSON of phase 12 (each tool's wall,
 single-pop's samples/s, evals/s, density calls and ESS/s of the age).
 Without a CUDA device it exits non-zero before printing any result.  It
@@ -397,18 +416,39 @@ def grad_errs(names, got, want) -> tuple[float, float, str]:
     return abs_e, scaled, " ".join(report)
 
 
+def chain_block(marg_in, c0: int, c1: int) -> tuple:
+    """Kernels 3-4's inputs for chains c0..c1-1: the tables' rows and, for
+    star sets ([G, S, B]: chain c on set c // (C // G); c0 and c1 on set
+    boundaries), those chains' sets."""
+    C = marg_in[3].shape[0]
+    stars = marg_in[:3]
+    if marg_in[0].ndim == 3:
+        k = C // marg_in[0].shape[0]
+        if c0 % k or (c1 < C and c1 % k):
+            raise ValueError(f"chains {c0}..{c1} split a star set of {k}")
+        stars = tuple(t[c0 // k:-(-c1 // k)] for t in stars)
+    return (*stars, *(t[c0:c1] for t in marg_in[3:]))
+
+
+def block_step(marg_in, per_block: float) -> int:
+    """Chains a block so that a [block, S, T, B] tensor holds about
+    `per_block` elements, a whole number of star sets."""
+    S, B = marg_in[0].shape[-2:]
+    C, T = marg_in[3].shape[:2]
+    k = C // marg_in[0].shape[0] if marg_in[0].ndim == 3 else 1
+    return max(1, int(per_block // (S * T * B * k))) * k
+
+
 def plain_blocks(fn, marg_in, *per_chain):
     """A plain marginal version `fn` on blocks of chains of `marg_in`
     (with `per_chain` tensors, such as out and g, cut alike), its outputs
     joined along the chain axis: the float64 residual form holds [C, S, T,
     B] tensors, 0.11 GB a chain at B = 29 and T = 5056."""
-    S, B = marg_in[0].shape
-    T = marg_in[3].shape[1]
-    step = max(1, int(PLAIN_BLOCK_BYTES // (S * T * B * 8)))
+    step = block_step(marg_in, PLAIN_BLOCK_BYTES / 8)
     outs = []
     for c0 in range(0, marg_in[3].shape[0], step):
         rows = slice(c0, c0 + step)
-        outs.append(fn(*marg_in[:3], *(t[rows] for t in marg_in[3:]),
+        outs.append(fn(*chain_block(marg_in, c0, c0 + step),
                        *(t[rows] for t in per_chain)))
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -442,7 +482,9 @@ def check_marglik(marg_in, label: str) -> dict:
     f64["marglik_bwd"] = (grad_errs(names, bwd_k, bwd_64)[1],
                           grad_errs(names, bwd_p, bwd_64)[1])
     C, T = marg_in[3].shape[:2]
-    log(f"  [{label}] marglik C={C} S={marg_in[0].shape[0]} T={T}: fwd "
+    sets = f" G={marg_in[0].shape[0]}" if marg_in[0].ndim == 3 else ""
+    log(f"  [{label}] marglik C={C}{sets} S={marg_in[0].shape[-2]} T={T}: "
+        f"fwd "
         f"max|err| {checked['marglik_fwd']:.3e} ({int(sel.sum())}/"
         f"{sel.numel()} values > -200); bwd abs/scaled {report}")
     for name, (k64, p64) in f64.items():
@@ -454,8 +496,9 @@ def check_marglik(marg_in, label: str) -> dict:
     # gradient at all.
     dead = (marg_in[6] <= 0.5).all(1)
     if dead.any():
-        if not torch.equal(out_k[dead], ml.NEG_INF + marg_in[2].expand(
-                int(dead.sum()), -1)):
+        ln = (ml.chain_rows(marg_in[2], C) if marg_in[2].ndim == 2
+              else marg_in[2].expand(C, -1))
+        if not torch.equal(out_k[dead], ml.NEG_INF + ln[dead]):
             raise AssertionError(f"[{label}] masked chain's marginal")
         if not all(bool((d[dead] == 0).all()) for d in bwd_k):
             raise AssertionError(f"[{label}] masked chain's gradient")
@@ -759,7 +802,7 @@ def time_pair(kernel, plain, reps: int = 20,
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2), device_ms(kernel, reps)
 
 
-def time_marglik(marg_in) -> dict:
+def time_marglik(marg_in, plain_reps: int | None = None) -> dict:
     """Kernels 3 and 4 timed against their plain versions (time_pair)."""
     from base_tpu_torch.ops import marglik as ml
 
@@ -767,14 +810,18 @@ def time_marglik(marg_in) -> dict:
     gs = torch.ones_like(out)
     return {
         "marglik_fwd": time_pair(lambda: ml.marglik_fwd_cuda(*marg_in),
-                                 lambda: ml.marglik_fwd_plain(*marg_in)),
+                                 lambda: ml.marglik_fwd_plain(*marg_in),
+                                 plain_reps=plain_reps),
         "marglik_bwd": time_pair(
             lambda: ml.marglik_bwd_cuda(*marg_in, out, gs),
-            lambda: ml.marglik_bwd_plain(*marg_in, out, gs)),
+            lambda: ml.marglik_bwd_plain(*marg_in, out, gs),
+            plain_reps=plain_reps),
     }
 
 
-def time_kernels(model, z) -> dict:
+def time_kernels(model, z, plain_reps: int | None = None) -> dict:
+    """time_pair of kernels 1-4 at the main path's inputs at points z
+    (`plain_reps` calls of each plain version; by default 20)."""
     from base_tpu_torch.ops import table as tb
 
     table_in, marg_in = kernel_inputs(model, z)
@@ -782,10 +829,12 @@ def time_kernels(model, z) -> dict:
     g = torch.ones_like(comb)
     return {
         "table_fwd": time_pair(lambda: tb.table_fwd_cuda(*table_in),
-                               lambda: tb.table_fwd_plain(*table_in)),
+                               lambda: tb.table_fwd_plain(*table_in),
+                               plain_reps=plain_reps),
         "table_bwd": time_pair(lambda: tb.table_bwd_cuda(*table_in, g),
-                               lambda: tb.table_bwd_plain(*table_in, g)),
-        **time_marglik(marg_in),
+                               lambda: tb.table_bwd_plain(*table_in, g),
+                               plain_reps=plain_reps),
+        **time_marglik(marg_in, plain_reps),
     }
 
 
@@ -803,15 +852,15 @@ def skip_shares(marg_in) -> dict | None:
 
     if not hasattr(ml, "marglik_bwd_group_skip"):
         return None
-    S, B = marg_in[0].shape
+    S = marg_in[0].shape[-2]
     C, T = marg_in[3].shape[:2]
     # Blocks of chains, so that the plain [C, S, T, B] tensors stay near
     # 2^28 elements (one chain a block at S = 10 000, T = 2016).
-    step = max(1, 2**28 // (S * T * B))
+    step = block_step(marg_in, 2**28)
     n = dict(live=0, pairs=0, pairs_marked=0, contracted=0, kept=0,
              marked=0, need_pairs=0)
     for c0 in range(0, C, step):
-        blk = marg_in[:3] + tuple(t[c0:c0 + step] for t in marg_in[3:])
+        blk = chain_block(marg_in, c0, c0 + step)
         out = ml.marglik_fwd_plain(*blk)
         skip = ml.marglik_bwd_skip(*blk, out)
         gskip = ml.marglik_bwd_group_skip(*blk, out)
@@ -843,11 +892,13 @@ def skip_shares(marg_in) -> dict | None:
 
 def _marglik_sizes(marg_in) -> tuple[int, int, int]:
     """(live (chain, star, segment) elements, bytes of the forward, bytes
-    of the backward): each input read once, each output written once."""
-    S, B = marg_in[0].shape
+    of the backward): each input read once, each output written once (the
+    stars of every star set)."""
+    S, B = marg_in[0].shape[-2:]
     C, T = marg_in[3].shape[:2]
     f = 4                                           # bytes per float
-    inputs = f * (2 * S * B + S + 2 * C * T * B + 2 * C * T)
+    inputs = f * (2 * marg_in[0].numel() + marg_in[2].numel()
+                  + 2 * C * T * B + 2 * C * T)
     return (S * int((marg_in[6] > 0.5).sum()), inputs + f * C * S,
             inputs + f * 2 * C * S + f * (2 * C * T * B + C * T))
 
@@ -856,7 +907,7 @@ def marglik_work(marg_in, bwd: bool = True) -> dict:
     """{kernel: (flops, bytes)} of kernels 3 and 4 on these inputs (see
     kernel_work), with kernel 4's dense count and its skip shares; kernel
     3's alone without `bwd`."""
-    S, B = marg_in[0].shape
+    B = marg_in[0].shape[-1]
     live, fwd_bytes, marg_bwd_bytes = _marglik_sizes(marg_in)
     # Per live element: band contraction 11B, core_width and
     # phi_interval_scaled ~100, online update 5.
@@ -2190,15 +2241,18 @@ def run_longaxis5(model, vres, z0, free, smc: dict) -> dict:
 # Phase 12: the port's CLI (base_tpu_torch.tools.main) end to end, called
 # in-process so that the wrappers' launch counters see it, at the widths of
 # conf/base9.yaml (100 stars, 30% binaries, UBVRIJHK, nMassRatio 16, the
-# default upsample 4, 64 chains, dense metric, lMax 48).  Only the depth is
-# cut: 16 warmup transitions and 16 draws a chain (32 + 32 until phase 14
-# joined), which leaves phases 13-15 their time within the script's limit
+# default upsample 4, 64 chains, dense metric).  Only the depth is cut: 16
+# warmup transitions and 16 draws a chain (32 + 32 until phase 14 joined),
+# and l_max 24 (conf/base9.yaml's 48 until phase 16 joined: the phase
+# checks the CLI's path and launches, not its mixing), which leaves phases
+# 13-16 their time within the script's limit
 # (with 8 draws the CLI's --metrics windows, a quarter of the draws, hold
 # 2 draws a chain: no split R-hat).  conf/base9.yaml says
 # usePallas: false, which the card refuses; settings read a later `--set
 # mcmc.usePallas=auto` over that YAML boolean as false (as base_tpu's do),
 # so the kernels are asked for with true.
-CLI_SETS = ("mcmc.warmup=16", "mcmc.runIter=1024", "mcmc.usePallas=true")
+CLI_SETS = ("mcmc.warmup=16", "mcmc.runIter=1024", "mcmc.usePallas=true",
+            "mcmc.lMax=24")
 # The CLI model's density check against the CPU (12a, 13b) runs on 16 of
 # its 64 chains: the CPU plain density at upsample 4 holds [C, S, T, B]
 # tensors of 0.9 GB at 16 chains and B = 29.  Its kernels are checked on
@@ -2468,7 +2522,13 @@ def run_cli(dev, hmc_res: dict) -> dict:
 # 13c drives the matmul form
 # (kernels 3m and 4m) at the bench shapes (B = 8) and on 13b's MS table (B
 # = 29).
-WIDE_SETS = ("mcmc.warmup=16", "mcmc.runIter=1024", "mcmc.usePallas=true")
+# l_max 24 (conf/base9.yaml's 48 until phase 16 joined): the phase checks
+# the ingest, the 29-band kernels and the CLI's launches, not the mixing.
+WIDE_SETS = ("mcmc.warmup=16", "mcmc.runIter=1024", "mcmc.usePallas=true",
+             "mcmc.lMax=24")
+# Calls of each plain version timed at B = 29 (44-85 ms a call for kernels
+# 3-4; 20 until phase 16 joined).
+PLAIN_REPS_B29 = 4
 # 13c: the seeds of the chain points at which kernels 3m and 4m are
 # checked at each width (seed 1: the points the phase times), the value +
 # gradient calls of fused_log_marginals(..., matmul=True) that make up the
@@ -2861,7 +2921,7 @@ def run_wide(dev, bench) -> dict:
 
     log("phase 13b: kernels 1-4 at B = 29 (the CLI's 64 chains): times "
         "and bounds")
-    times = time_kernels(model, z)
+    times = time_kernels(model, z, plain_reps=PLAIN_REPS_B29)
     work = kernel_work(model, z)
     res["kernels_b29"] = {}
     for name in KERNELS:
@@ -3473,6 +3533,302 @@ def run_golden(dev) -> dict:
     return res
 
 
+# Phase 16: the simulation-based calibration (SBC) path on the card, the
+# port's counterpart of base_tpu's vmap over data sets
+# (tests/test_calibration.py; scripts/torch_sbc.py runs the three checks
+# whole).  Its models hold base_tpu's 64 SBC data sets
+# (tests/data/sbc_stars.npz) as star sets, one chain a set.  16a, at the SBC
+# shapes, G = C = 64 (32 stars, no binaries: T = 47) and G = 8 with 8
+# chains a set (20 stars, binaries, n_q 8: T = 376): kernels 3-4 over star
+# sets against one-set launches on a set's chains and, at G = 1, against
+# the one-set kernel, bit for bit; against their plain versions and
+# float64 within MARGLIK_TOL on the SBC stars with a model floor of
+# SIGMA_MODEL16 in quadrature.  Without it every star has sigma 0.01 and
+# the tables no upsampling, and the float32 formula itself (kernel or plain
+# version, CPU or card) sits up to 1.7-4.5e-2 from float64 (a long segment
+# cancels gamma - beta^2 / alpha from ~1e5 down to ~10): there the errors
+# are reported, not gated.  The kernels' times beside the one-set form's
+# and their bound, on the SBC data.  16b: the stacked density (64 sets, a
+# chain a set about a posterior sd from its truth) on the card against the
+# CPU plain path (with the floor; without it, reported).  16c: replica-blocked HMC (run_hmc(replicas=64) on the
+# binaries model: all four kernels) and adaptive MH (the MS model: kernel
+# 3), cut to a few transitions, each run again with one set's stars moved
+# by MOVED_MAG: finite draws, every kernel launched once an evaluation,
+# and every other replica's draws bit for bit the same.
+SBC_SHAPES16 = {"G64": ("ms", 4, False, 64, 1),
+                "G8 k8": ("bin", 8, True, 8, 8)}
+SIGMA_MODEL16 = 0.1
+N_WARMUP16, N_SAMPLES16, L_MAX16 = 48, 8, 8
+MH16 = dict(n_stage1=50, n_stage2=20, n_main=20)
+MOVED_SET16 = 5
+
+
+def torch_sbc():
+    """scripts/torch_sbc.py, the SBC runs' module."""
+    if repo_path("scripts") not in sys.path:
+        sys.path.insert(0, repo_path("scripts"))
+    import torch_sbc as mod
+
+    return mod
+
+
+def sbc_marglik_inputs(dev, shape: str, sigma_model: float = 0.0,
+                       seed: int = 0) -> tuple:
+    """Kernels 3-4's inputs on SBC_SHAPES16[shape] as the SBC path builds
+    them (ms_table: the fused table with binaries, the plain one
+    without), k chains a set near each set's truth."""
+    from base_tpu_torch.model import posterior as post
+
+    coll, n_q, binaries, G, k = SBC_SHAPES16[shape]
+    model, truths = torch_sbc().sbc_model(coll, n_q, binaries, dev, G,
+                                          sigma_model=sigma_model)
+    table, _ = post.ms_table(model, torch.as_tensor(
+        torch_sbc().near_truths(truths, k, seed), device=dev))
+    st = model.stars
+    return (st.obs_mags, st.inv_var, st.log_norm, table.lo.contiguous(),
+            table.hi.contiguous(), table.logw.contiguous(),
+            table.mask.float())
+
+
+def marglik_floor(marg_in, label: str) -> dict:
+    """Kernels 3-4, their plain versions on the card and on the CPU, all
+    against float64 (the plain version on the CPU): the float32 formula's
+    own error on these inputs, reported (forward where plain is above
+    -200; backward scaled by float64's largest magnitude)."""
+    from base_tpu_torch.ops import marglik as ml
+
+    cpu = tuple(t.cpu() for t in marg_in)
+    out64 = ml.marglik_fwd_plain(*(t.double() for t in cpu))
+    sel = out64 > -200
+    g = torch.randn(out64.shape, generator=torch.Generator().manual_seed(7))
+    bwd64 = ml.marglik_bwd_plain(*(t.double() for t in cpu), out64,
+                                 g.double())
+    res = {}
+    for name, fwd, bwd, args in (
+            ("kernel", ml.marglik_fwd_cuda, ml.marglik_bwd_cuda, marg_in),
+            ("plain card", ml.marglik_fwd_plain, ml.marglik_bwd_plain,
+             marg_in),
+            ("plain cpu", ml.marglik_fwd_plain, ml.marglik_bwd_plain, cpu)):
+        gd = g.to(args[0].device)
+        out = fwd(*args)
+        grads = bwd(*args, out64.float().to(args[0].device), gd)
+        res[name] = dict(
+            fwd=float((out.cpu().double() - out64).abs()[sel].max()),
+            bwd_scaled=max(float((a.cpu().double() - b).abs().max())
+                           / max(float(b.abs().max()), 1e-30)
+                           for a, b in zip(grads, bwd64)))
+    log(f"  [{label}, sigma 0.01] against float64 (reported): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def check_sets_vs_one_set(marg_in, label: str) -> None:
+    """Kernels 3-4 over star sets against one-set launches on the first
+    and the last set's chains (bit for bit), and the stacked form at G = 1
+    against the one-set kernel on the first set (bit for bit)."""
+    from base_tpu_torch.ops import marglik as ml
+
+    G = marg_in[0].shape[0]
+    k = marg_in[3].shape[0] // G
+    out = ml.marglik_fwd_cuda(*marg_in)
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(device=out.device)
+                    .manual_seed(7))
+    grads = ml.marglik_bwd_cuda(*marg_in, out, g)
+    same = {}
+    for s_ in (0, G - 1):
+        one = tuple(t[s_] for t in marg_in[:3]) + tuple(
+            t[s_ * k:(s_ + 1) * k].contiguous() for t in marg_in[3:])
+        rows = slice(s_ * k, (s_ + 1) * k)
+        o1 = ml.marglik_fwd_cuda(*one)
+        g1 = ml.marglik_bwd_cuda(*one, out[rows].contiguous(),
+                                 g[rows].contiguous())
+        same[f"set {s_}"] = torch.equal(out[rows], o1) and all(
+            torch.equal(a[rows], b) for a, b in zip(grads, g1))
+        if s_ == 0:
+            st = tuple(t[None] for t in one[:3]) + one[3:]
+            same["G = 1"] = torch.equal(ml.marglik_fwd_cuda(*st), o1) and all(
+                torch.equal(a, b) for a, b in zip(
+                    ml.marglik_bwd_cuda(*st, out[rows].contiguous(),
+                                        g[rows].contiguous()), g1))
+    log(f"  [{label}] bit for bit against one-set launches: "
+        f"{json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError(f"16a {label}: the set form differs from the "
+                             f"one-set kernel")
+
+
+def time_sets(marg_in) -> dict:
+    """Kernels 3-4 over star sets: time_pair against the plain version,
+    the one-set form's device ms at the same shapes (every chain on set
+    0), and the bound of the set form's work."""
+    times = time_marglik(marg_in)
+    one = tuple(t[0] for t in marg_in[:3]) + marg_in[3:]
+    one_times = {k: v[2] for k, v in time_marglik(one).items()}
+    work = marglik_work(marg_in)
+    res = {}
+    for name, (ms_, plain_ms, dev_ms) in times.items():
+        bound_ms, by = bound(*work[name])
+        res[name] = dict(ms=ms_, plain_ms=plain_ms, device_ms=dev_ms,
+                         device_ms_one_set=one_times[name],
+                         bound_ms=bound_ms, bound_by=by,
+                         roofline_share=bound_ms / dev_ms)
+    return res
+
+
+def sbc_hmc16(dev, moved_set=None) -> dict:
+    """16c's replica-blocked HMC on the binaries SBC model: (results,
+    draws [n, 64, 9])."""
+    from base_tpu_torch.inference import hmc
+    from base_tpu_torch.model import posterior as post
+
+    sbc = torch_sbc()
+    model, truths = sbc.sbc_model("bin", 8, True, dev, moved_set=moved_set)
+    tr = post.default_transform(model)
+    fz, calls = counted(post.make_logpost_z_fn(model, tr))
+    cfg = hmc.HMCConfig(**dict(sbc.CASES["hmc_binaries"]["settings"],
+                               n_warmup=N_WARMUP16, n_samples=N_SAMPLES16,
+                               l_max=L_MAX16))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zs, info = hmc.run_hmc(fz, tr.inverse(torch.as_tensor(truths,
+                                                          device=dev)),
+                           torch.Generator(device=dev).manual_seed(13), cfg,
+                           replicas=sbc.R)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_one_launch_per_call("16c HMC", counts, calls[0])
+    xs = tr.forward(zs.reshape(-1, zs.shape[-1])).reshape(zs.shape)
+    if not (torch.isfinite(xs).all() and info["inv_mass"].shape
+            == (sbc.R, 9, 9) and info["step_size"].shape == (sbc.R,)):
+        raise AssertionError("16c HMC: non-finite draws or a shared metric")
+    return dict(wall_s=wall, evals=calls[0], ms_per_eval=1e3 * wall
+                / calls[0], launches=counts,
+                accept=float(info["accept_prob"]),
+                step_size=[float(info["step_size"].min()),
+                           float(info["step_size"].max())]), xs
+
+
+def sbc_mh16(dev, moved_set=None) -> dict:
+    """16c's adaptive MH (every chain adapting on its own) on the MS SBC
+    model: (results, draws [n, 64, 9])."""
+    from base_tpu_torch.inference import mh
+    from base_tpu_torch.model import posterior as post
+
+    sbc = torch_sbc()
+    model, truths = sbc.sbc_model("ms", 4, False, dev, moved_set=moved_set)
+    f, calls = counted(post.make_logpost_fn(model))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, info = mh.run_adaptive_mh(
+        f, torch.as_tensor(truths, device=dev),
+        torch.Generator(device=dev).manual_seed(5), sbc.STEP0_MH,
+        mh.MHConfig(**MH16))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_one_launch_per_call("16c MH", counts, calls[0],
+                              kernels=("marglik_fwd",))
+    if not torch.isfinite(xs).all():
+        raise AssertionError("16c MH: non-finite draws")
+    return dict(wall_s=wall, evals=calls[0], ms_per_eval=1e3 * wall
+                / calls[0], launches=counts,
+                accept=float(info["accept_rate"].mean())), xs
+
+
+def check_replicas(label: str, a, b, moved: int) -> dict:
+    """Draws a [n, R, P] and b (the same run with set `moved` moved): every
+    other replica bit for bit the same, the moved one not."""
+    same = [torch.equal(a[:, r], b[:, r]) for r in range(a.shape[1])]
+    others = all(v for r, v in enumerate(same) if r != moved)
+    log(f"  [{label}] set {moved} moved: other replicas bit for bit "
+        f"{others}, replica {moved} changed {not same[moved]}")
+    if not others or same[moved]:
+        raise AssertionError(f"16c {label}: a replica's draws depend on "
+                             f"another's stars")
+    return dict(others_bit_identical=others, moved_changed=not same[moved])
+
+
+def density_floor(model, model_cpu, z) -> dict:
+    """The stacked density at the SBC data's own sigmas: card and CPU
+    against float64 (the CPU plain path), reported."""
+    lp_g, g_g = density_fn(model)(z)
+    lp_c, g_c = density_fn(model_cpu)(z.cpu())
+    m64 = dataclasses.replace(_double(model_cpu), use_pallas=False)
+    lp_d = logpost_z_fn(m64)(z.cpu().double()).detach()
+
+    def rel(a):
+        return float(((a.cpu().double() - lp_d).abs()
+                      / lp_d.abs().clamp_min(1.0)).max())
+
+    res = dict(card_vs_cpu=float(((lp_g.cpu() - lp_c).abs()
+                                  / lp_c.abs().clamp_min(1.0)).max()),
+               card_vs_float64=rel(lp_g), cpu_vs_float64=rel(lp_c))
+    log(f"  [sigma 0.01] log_post relative errors (reported): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def _double(obj):
+    """obj with every floating tensor in it, through nested dataclass
+    fields, in float64."""
+    if isinstance(obj, torch.Tensor):
+        return obj.double() if obj.is_floating_point() else obj
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _double(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def run_sbc(dev) -> dict:
+    """Phase 16 (see the comment above SBC_SHAPES16)."""
+    sbc = torch_sbc()
+    res = {"max_abs_err": {}, "kernels": {}, "floor": {}}
+    log("phase 16a: kernels 3-4 over star sets at the SBC shapes: vs one-set "
+        f"launches and G = 1; vs plain (sigma_model {SIGMA_MODEL16}); times")
+    for shape in SBC_SHAPES16:
+        marg_in = sbc_marglik_inputs(dev, shape)
+        check_sets_vs_one_set(marg_in, shape)
+        res["floor"][shape] = marglik_floor(marg_in, shape)
+        errs = check_marglik(sbc_marglik_inputs(dev, shape, SIGMA_MODEL16),
+                             f"sbc {shape}, sigma_model {SIGMA_MODEL16}")
+        for name, err in errs.items():
+            res["max_abs_err"][name] = max(res["max_abs_err"].get(name, 0.0),
+                                           err)
+        res["kernels"][shape] = time_sets(marg_in)
+        log(f"  [{shape}] " + json.dumps(res["kernels"][shape]))
+
+    log("phase 16b: the stacked density (64 sets, one chain a set near its "
+        "truth), card vs CPU")
+    for sm in (SIGMA_MODEL16, 0.0):
+        model, truths = sbc.sbc_model("ms", 4, False, dev, sigma_model=sm)
+        model_cpu, _ = sbc.sbc_model("ms", 4, False, "cpu", sigma_model=sm)
+        z = transform(model).inverse(torch.as_tensor(
+            sbc.near_truths(truths, 1, 1), device=dev))
+        if sm:
+            check_density(model, model_cpu, z)
+        else:
+            res["density_sigma_001"] = density_floor(model, model_cpu, z)
+
+    log(f"phase 16c: run_hmc(replicas=64) on the binaries SBC model, "
+        f"{N_WARMUP16} + {N_SAMPLES16}, l_max {L_MAX16}; adaptive MH on "
+        f"the MS SBC model, {MH16['n_stage1']} + {MH16['n_stage2']} + "
+        f"{MH16['n_main']}; each again with set {MOVED_SET16} moved")
+    res["hmc"], xs = sbc_hmc16(dev)
+    _, xs_moved = sbc_hmc16(dev, MOVED_SET16)
+    res["hmc"]["replicas"] = check_replicas("HMC", xs, xs_moved,
+                                            MOVED_SET16)
+    res["mh"], xs = sbc_mh16(dev)
+    _, xs_moved = sbc_mh16(dev, MOVED_SET16)
+    res["mh"]["replicas"] = check_replicas("MH", xs, xs_moved, MOVED_SET16)
+    log("  " + json.dumps({k: res[k] for k in ("hmc", "mh")}))
+    return res
+
+
 def kernel_outputs(models: dict, z) -> dict:
     """Kernels 1 and 4 on phase 2's inputs at each shape, with the inputs,
     for --save-outputs."""
@@ -3661,6 +4017,10 @@ def main() -> None:
     golden = run_golden(torch.device("cuda", 0))
     clock.done("15")
 
+    # 16. The SBC path: kernels 3-4 over star sets, replica blocks.
+    sbc = run_sbc(torch.device("cuda", 0))
+    clock.done("16")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report[name]
@@ -3696,7 +4056,13 @@ def main() -> None:
             # Phase 15's MH (kernels 1 and 3) and HMC on the golden model.
             launches_golden={k: golden[k]["launches"][name]
                              for k in ("mh", "hmc")},
-            max_abs_err_golden=golden["max_abs_err"][name]))
+            max_abs_err_golden=golden["max_abs_err"][name],
+            # Phase 16c's replica-blocked HMC (binaries) and MH (kernel
+            # 3); 16a's set form at the SBC shapes.
+            launches_sbc={k: sbc[k]["launches"][name] for k in ("hmc", "mh")},
+            **({"max_abs_err_sbc": sbc["max_abs_err"][name],
+                "sbc": {k: v[name] for k, v in sbc["kernels"].items()}}
+               if name in sbc["max_abs_err"] else {})))
         if not all(math.isfinite(v) for k, v in kernels[-1].items()
                    if k.startswith(("ms", "plain_ms", "bound_ms",
                                     "device_ms"))):
@@ -3722,7 +4088,8 @@ def main() -> None:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"wide": wide}))
     print(json.dumps({"parallel": par}))
-    print(json.dumps({"golden": golden, "phase_walls": clock.walls}))
+    print(json.dumps({"golden": golden}))
+    print(json.dumps({"sbc": sbc, "phase_walls": clock.walls}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

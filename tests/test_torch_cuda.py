@@ -840,3 +840,89 @@ def test_two_ranks_on_one_card_density(cuda):
                 assert res[key]["value_rel_err"] <= \
                     chip_smoke.SHARD_VALUE_RTOL
                 assert res[key]["grad_err_over_bound"] <= 1.0
+
+
+# ---- star sets (kernels 3-4 over G data sets; scripts/torch_sbc.py) -------
+
+def _sbc(shape, dev, sigma_model=0.0):
+    """chip_smoke's phase-16a inputs: kernels 3-4's on SBC_SHAPES16[shape]
+    over base_tpu's SBC data sets (tests/data/sbc_stars.npz), with
+    `sigma_model` added to the sigmas in quadrature."""
+    import chip_smoke
+
+    return chip_smoke.sbc_marglik_inputs(dev, shape, sigma_model)
+
+
+SBC_SHAPES = ("G64", "G8 k8")
+
+
+@pytest.mark.parametrize("shape", SBC_SHAPES)
+def test_marglik_kernels_over_sets_match_plain(cuda, shape):
+    """Kernels 3-4 over star sets at the SBC shapes against their plain
+    versions: the forward where plain is above -200, the backward scaled
+    by plain's largest magnitude, both within MARGLIK_TOL, on the SBC stars
+    with chip_smoke's SIGMA_MODEL16 floor (at their own sigmas of 0.01 the
+    float32 formula, plain or kernel, sits up to 1.7-4.5e-2 from float64);
+    and on the SBC data as they are against one-set launches on a set's
+    chains, bit for bit (the same per-chain work in the same order).  Run
+    from the repository root."""
+    import chip_smoke
+
+    args = _sbc(shape, cuda, sigma_model=chip_smoke.SIGMA_MODEL16)
+    want = ml.marglik_fwd_plain(*args)
+    got = ml.marglik_fwd_cuda(*args)
+    sel = want > -200
+    assert float((got - want).abs()[sel].max()) <= MARGLIK_TOL
+    g = _randn(want.shape, cuda)
+    grads = ml.marglik_bwd_cuda(*args, want, g)
+    for a, b in zip(grads, ml.marglik_bwd_plain(*args, want, g)):
+        assert float((a - b).abs().max()) / (
+            float(b.abs().max()) + 1e-30) <= MARGLIK_TOL
+    args = _sbc(shape, cuda)
+    got = ml.marglik_fwd_cuda(*args)
+    grads = ml.marglik_bwd_cuda(*args, got, g)
+    obs, iv, ln, *tab = args
+    G = obs.shape[0]
+    k = tab[0].shape[0] // G
+    for s in (0, G - 1):
+        rows = slice(s * k, (s + 1) * k)
+        one = (obs[s], iv[s], ln[s], *(t[rows].contiguous() for t in tab))
+        assert torch.equal(got[rows], ml.marglik_fwd_cuda(*one))
+        for a, b in zip(grads, ml.marglik_bwd_cuda(*one, got[rows],
+                                                   g[rows].contiguous())):
+            assert torch.equal(a[rows], b)
+
+
+def test_marglik_one_set_stacked_is_one_set_kernel(cuda):
+    """G = 1 in the stacked form ([1, S, B]) gives the one-set kernel's
+    outputs bit for bit (the set offset is 0)."""
+    args = _marglik_inputs(cuda, T=700, near=True)
+    stacked = (args[0][None], args[1][None], args[2][None], *args[3:])
+    out = ml.marglik_fwd_cuda(*args)
+    assert torch.equal(ml.marglik_fwd_cuda(*stacked), out)
+    g = _randn(out.shape, cuda)
+    for a, b in zip(ml.marglik_bwd_cuda(*stacked, out, g),
+                    ml.marglik_bwd_cuda(*args, out, g)):
+        assert torch.equal(a, b)
+
+
+def test_stacked_density_card_vs_cpu(cuda):
+    """The SBC HMC model over 64 sets (chip_smoke's SIGMA_MODEL16 floor, as
+    test_marglik_kernels_over_sets_match_plain), one chain a set about a
+    posterior sd from its truth: chip_smoke's check_density (log_post +
+    gradient through the kernels on the card against the plain path on
+    the CPU within DENSITY_REL_TOL and DENSITY_GRAD_TOL, two card calls
+    bit for bit), kernels 3 and 4 launched once a call.  Run from the
+    repository root."""
+    import chip_smoke
+
+    sbc = chip_smoke.torch_sbc()
+    sm = chip_smoke.SIGMA_MODEL16
+    model, truths = sbc.sbc_model("ms", 4, False, cuda, sigma_model=sm)
+    model_cpu, _ = sbc.sbc_model("ms", 4, False, "cpu", sigma_model=sm)
+    z = chip_smoke.transform(model).inverse(torch.as_tensor(
+        sbc.near_truths(truths, 1, 1), device=cuda))
+    before = ml.marglik_fwd_launches, ml.marglik_bwd_launches
+    chip_smoke.check_density(model, model_cpu, z)
+    assert (ml.marglik_fwd_launches, ml.marglik_bwd_launches) == (
+        before[0] + 2, before[1] + 2)
