@@ -926,3 +926,70 @@ def test_stacked_density_card_vs_cpu(cuda):
     chip_smoke.check_density(model, model_cpu, z)
     assert (ml.marglik_fwd_launches, ml.marglik_bwd_launches) == (
         before[0] + 2, before[1] + 2)
+
+
+# ---- base_tpu's last slow checks (scripts/torch_slow_checks.py) ----------
+
+def _slow_checks():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import torch_slow_checks
+
+    return torch_slow_checks
+
+
+@pytest.mark.parametrize("name", ["mp", "vi"])
+def test_slow_check_models_card_vs_cpu(cuda, name):
+    """The two-population model of case A and the VI model of case C on
+    base_tpu's catalogs (tests/data/slow_checks_stars.npz): log_post and
+    its z-space gradient through the kernels on the card against the
+    plain path on the CPU with tests/test_torch_multipop.py
+    _check_parity's tolerances (value to 1e-4 of each point's |log_post|,
+    gradient to 1e-3 of its largest component over the points: at sigma
+    0.01 on the small grid each float32 gradient sits up to ~6e-3 of its
+    own point's largest component from float64, on the CPU too), two card
+    calls bit for bit, kernels 3 and 4 launched once a call and kernels
+    1-2 never (no binaries).  The points: the VI model's truth and two
+    nearby points; for the two-population model three nearby points (its
+    truth's age and Y_B sit on grid nodes, a kink where a last-bit
+    difference picks the other side's gradient).  Run from the
+    repository root."""
+    import chip_smoke
+
+    sc = _slow_checks()
+    build = sc.mp_model if name == "mp" else sc.vi_model
+    (model, truth), (model_cpu, _) = build(cuda), build("cpu")
+    pts = sc.parity_points(truth, 4)[1:] if name == "mp" else \
+        sc.parity_points(truth)
+    z = chip_smoke.transform(model).inverse(torch.as_tensor(pts,
+                                                            device=cuda))
+    before = sc.launch_counts()
+    lp, g = chip_smoke.density_fn(model)(z)
+    after = sc.launch_counts()
+    lp_c, g_c = chip_smoke.density_fn(model_cpu)(z.cpu())
+    assert torch.isfinite(lp).all() and torch.isfinite(g).all()
+    assert ((lp.cpu() - lp_c).abs()
+            <= 1e-4 * lp_c.abs().clamp_min(1.0)).all(), (lp, lp_c)
+    assert ((g.cpu() - g_c).abs() <= 1e-3 * g_c.abs().max()).all(), (g, g_c)
+    lp2, g2 = chip_smoke.density_fn(model)(z)
+    assert torch.equal(lp, lp2) and torch.equal(g, g2)
+    assert {k: after[k] - before[k] for k in after} == dict(
+        table_fwd=0, table_bwd=0, marglik_fwd=1, marglik_bwd=1)
+
+
+@pytest.mark.parametrize("case", ["A", "C"])
+def test_slow_check_case_short_on_the_card(cuda, monkeypatch, case):
+    """Case A cut to 8 + 4 transitions at l_max 2 and case C to 12 VI
+    steps, on the card: kernels 3 and 4 launched once an evaluation
+    (sc.check_launches inside run_case), finite draws."""
+    sc = _slow_checks()
+    monkeypatch.setattr(sc, "HMC", dict(sc.HMC, n_warmup=8, n_samples=4,
+                                        l_max=2))
+    monkeypatch.setattr(sc, "VI", dict(sc.VI, n_steps=12))
+    res = sc.run_case(case, cuda)
+    assert res["evaluations"] == (1 + 12 * 2 if case == "A" else 12)
+    assert res["launches"]["marglik_fwd"] == res["evaluations"]
+    assert all(np.isfinite(p["mean"]) for p in res["posterior"].values())

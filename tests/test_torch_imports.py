@@ -1,7 +1,7 @@
 """The port stands alone: no module of base_tpu_torch, and none of
 chip_smoke.py, scripts/torch_profiler_probe.py,
-scripts/torch_mesh_cards.py, scripts/torch_longaxis.py and
-scripts/torch_sbc.py, imports
+scripts/torch_mesh_cards.py, scripts/torch_longaxis.py,
+scripts/torch_sbc.py and scripts/torch_slow_checks.py, imports
 base_tpu or jax (nor PyYAML, which the card's machine need not have); the
 port's own copies of base_tpu's JAX-free constants, filter tables,
 settings, .res columns and model families equal the originals; and the
@@ -42,7 +42,8 @@ def test_port_imports_no_base_tpu_or_jax():
     files += [ROOT / "chip_smoke.py", ROOT / "scripts/torch_profiler_probe.py",
               ROOT / "scripts/torch_mesh_cards.py",
               ROOT / "scripts/torch_longaxis.py",
-              ROOT / "scripts/torch_sbc.py"]
+              ROOT / "scripts/torch_sbc.py",
+              ROOT / "scripts/torch_slow_checks.py"]
     assert len(files) > 20
     for module in ("model/multipop.py", "inference/vi.py",
                    "inference/mh.py", "inference/nuts.py",

@@ -1,9 +1,11 @@
 """The port's parallel layer (base_tpu_torch.parallel) on the CPU: a
 spawned world of 4 gloo ranks runs the sharded cases, on the
 `cluster_model` recipe of tests/test_parallel.py (50 stars, n_q 6, no
-binaries) built in both packages from the same numpy inputs, and the
-parent holds the results to base_tpu's shard_map, to the port unsharded,
-and to tests/test_parallel.py's checks.  This file holds (a), (b), (c)
+binaries; base_tpu's catalog, read from
+tests/data/parallel_cluster_stars.npz) built in both packages from the
+same numpy inputs, and the parent holds the results to base_tpu's
+shard_map, to the port unsharded, and to tests/test_parallel.py's
+checks.  This file holds (a), (b), (c)
 and (f); tests/test_torch_parallel_samplers.py (d), (e) and (g), and
 tests/test_torch_parallel_longaxis.py (h), each with a world of its own
 (WORLD_JOBS):
@@ -58,6 +60,11 @@ VI_CFG = VIConfig(n_steps=200, n_mc=4, full_rank=True, learning_rate=2e-2,
 WORLD = 4
 WORLD_DEADLINE_S = 600
 N_CHAINS = 8
+# The cluster's catalog: base_tpu's, written by
+# scripts/parallel_stars_from_jax.py (the workers and the parent read it;
+# the density world's parent checks it against base_tpu's builder).
+CLUSTER_STARS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "parallel_cluster_stars.npz")
 
 # The CLI's small cluster with WDs (tests/test_torch_cli.py's config).
 WD_CONFIG = (
@@ -69,6 +76,18 @@ WD_CONFIG = (
     "scatterCluster:\n  limitMag: 26.0\n"
     "mcmc:\n  upsample: 1\n  nMassRatio: 4\n"
 )
+
+
+def cluster_catalog(small_grid):
+    """(mags, sigmas) of the recipe by base_tpu's simulate_cluster and
+    scatter_cluster (scripts/parallel_stars_from_jax.py's builder)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import parallel_stars_from_jax as gen
+
+    return gen.catalog(small_grid)
 
 
 def _fields(obj, static=("bands", "name")):
@@ -192,6 +211,10 @@ def _sampler_start(model):
     return tr, z0, init, gen
 
 
+# (g)'s runs: 8 + 12 transitions of l_max 4 in chunks of 4 draws (three
+# chunks: the run is interrupted after the second).
+RESUME_HMC = dict(n_warmup=8, n_samples=12, l_max=4, n_windows=2)
+RESUME_CHUNK = 4
 # (h)'s run: 16 + 16 transitions of l_max 4 from one start; chain_chunk 2
 # of each rank's 4 chains.
 LONGAXIS_HMC = dict(n_warmup=16, n_samples=16, l_max=4, n_windows=2,
@@ -273,7 +296,7 @@ def _samplers_a(model, mesh, d):
 
 def _samplers_b(model, mesh, d):
     """(d), (e) and (g) at mesh (2, 2): HMC, VI and the sharded
-    checkpointed HMC interrupted and resumed; (h)."""
+    checkpointed HMC interrupted and resumed."""
     from base_tpu_torch.inference import hmc
     from base_tpu_torch.inference.driver import DriverConfig
     from base_tpu_torch.model import posterior as post
@@ -297,8 +320,9 @@ def _samplers_b(model, mesh, d):
     out["vi"] = dict(mu=res.mu, scale=res.scale, final_elbo=res.final_elbo,
                      draws=draws, cov=cov)
 
-    # (g): interrupted after chunk 1 (its checkpoint written), resumed.
-    rcfg = hmc.HMCConfig(n_warmup=20, n_samples=30, l_max=4, n_windows=2)
+    # (g): interrupted after chunk 1 (its checkpoint written), resumed;
+    # an equality of any run length, so RESUME_HMC is short.
+    rcfg = hmc.HMCConfig(**RESUME_HMC)
 
     def stop(ci, zs, lps):
         if ci == 1:
@@ -308,20 +332,19 @@ def _samplers_b(model, mesh, d):
     try:
         prun.run_hmc_sharded_checkpointed(
             model, tr, init(41), gen(42), rcfg, mesh,
-            DriverConfig(checkpoint_path=path, chunk_size=10,
+            DriverConfig(checkpoint_path=path, chunk_size=RESUME_CHUNK,
                          on_window=stop))
         raise AssertionError("the run was not interrupted")
     except _Interrupt:
         pass
     resumed = prun.run_hmc_sharded_checkpointed(
         model, tr, init(41), gen(42), rcfg, mesh,
-        DriverConfig(checkpoint_path=path, chunk_size=10))
+        DriverConfig(checkpoint_path=path, chunk_size=RESUME_CHUNK))
     whole = prun.run_hmc_sharded_checkpointed(
         model, tr, init(41), gen(42), rcfg, mesh,
-        DriverConfig(chunk_size=10))
+        DriverConfig(chunk_size=RESUME_CHUNK))
     out["resume"] = [(zs, info["logposts"], info["step_size"],
                       info["inv_mass"]) for zs, info in (resumed, whole)]
-    out["longaxis"] = _longaxis(model, mesh)
     return out
 
 
@@ -428,28 +451,25 @@ class _Ranks:
 
 
 def spawn_world(small_grid, tmp_path_factory, job):
-    """base_tpu's cluster_model, the port's inputs from it, and the
-    results of the world's WORLD ranks running WORLD_JOBS[job] (_Ranks).
-    The world starts first and waits for the inputs file; the CLI's WD
-    photometry is made only for the density job."""
-    import jax
-    import jax.numpy as jnp
+    """base_tpu's cluster_model on the catalog of
+    tests/data/parallel_cluster_stars.npz, the port's inputs from it, and
+    the results of the world's WORLD ranks running WORLD_JOBS[job]
+    (_Ranks).  The world starts first and waits for the inputs file; the
+    CLI's WD photometry is made only for the density job, which then, as
+    the world runs, holds the catalog to base_tpu's simulate_cluster and
+    scatter_cluster (threefry keys 21 and 22) bit for bit."""
     import torch.multiprocessing as tmp
 
     from base_tpu.model import posterior as jpost
     from base_tpu.model.stardata import make_ms_stars
-    from base_tpu.sim.scatter import scatter_cluster
-    from base_tpu.sim.simulate import simulate_cluster
     from base_tpu_torch.tools import main as tmain
 
     d = tmp_path_factory.mktemp(f"torch_parallel_{job}")
     ctx = tmp.start_processes(_world, args=(str(d), job), nprocs=WORLD,
                               start_method="spawn", join=False)
-    cat = simulate_cluster(small_grid, jnp.asarray(TRUTH), 50,
-                           jax.random.PRNGKey(21), percent_binary=0.0)
-    sc = scatter_cluster(cat.mags, jax.random.PRNGKey(22), limit_mag=24.0)
-    stars = make_ms_stars(np.asarray(sc.mags), np.asarray(sc.sigmas),
-                          cm_prior=0.999)
+    with np.load(CLUSTER_STARS) as f:
+        mags, sigmas = f["mags"], f["sigmas"]
+    stars = make_ms_stars(mags, sigmas, cm_prior=0.999)
     jm = jpost.make_single_pop_model(small_grid, stars, prior_mean=TRUTH,
                                      prior_sigma=PRIOR_SIGMA, n_q=6,
                                      binaries=False)
@@ -465,6 +485,13 @@ def spawn_world(small_grid, tmp_path_factory, job):
         inp.update(wd_config=str(cfg), wd_phot=str(d / "wd.phot"))
     torch.save(inp, d / "inputs.tmp")
     os.replace(d / "inputs.tmp", d / "inputs.pt")   # whole, or not there
+    if job == "density":
+        want = cluster_catalog(small_grid)
+        if not (np.array_equal(want[0], mags)
+                and np.array_equal(want[1], sigmas)):
+            raise AssertionError(f"{CLUSTER_STARS} is not base_tpu's "
+                                 f"catalog: rewrite it with scripts/"
+                                 f"parallel_stars_from_jax.py")
     return jm, inp, _Ranks(d, ctx)
 
 

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parallel import (N_CHAINS, TRUTH, VI_CFG, _port_model,
-                                 spawn_world)
+from test_torch_parallel import (N_CHAINS, RESUME_HMC, TRUTH, VI_CFG,
+                                 _port_model, spawn_world)
 
 torch.set_num_threads(1)
 
@@ -153,6 +153,6 @@ def test_sharded_checkpoint_resume_bit_identical(world):
     uninterrupted run bit for bit, on every rank."""
     for r in world[2]:
         (zs, lps, eps, im), (zs2, lps2, eps2, im2) = r["resume"]
-        assert zs.shape == (30, N_CHAINS, 9)
+        assert zs.shape == (RESUME_HMC["n_samples"], N_CHAINS, 9)
         assert torch.equal(zs, zs2) and torch.equal(lps, lps2)
         assert torch.equal(eps, eps2) and torch.equal(im, im2)
