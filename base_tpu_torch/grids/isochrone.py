@@ -9,6 +9,7 @@ and every field of the resulting `Isochrone` carries a leading chain axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -54,6 +55,15 @@ class IsochroneGrid:
     def device(self) -> torch.device:
         return self.mass.device
 
+    @functools.cached_property
+    def corner_pack(self) -> torch.Tensor:
+        """[F, Y, A, D] every payload derive_isochrone blends with one
+        corner weight, built once per grid: mass [E], valid (the
+        renormaliser) [E], agb_tip [1] and valid * mags [E * B]."""
+        return torch.cat([self.mass, self.valid, self.agb_tip[..., None],
+                          (self.valid[..., None] * self.mags).flatten(3)],
+                         -1)
+
 
 @dataclasses.dataclass(frozen=True)
 class Isochrone:
@@ -91,11 +101,31 @@ def _mass_sorted(mass: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid > 0.5, mass, PAD_MASS_BASE + e_idx)
 
 
-def _bracket(axis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """[C, n] one-hots of the two nodes bracketing each query q [C]."""
-    idx = iops.locate(axis, q).idx[:, None]
-    ar = torch.arange(axis.shape[0], device=axis.device)[None, :]
-    return ((ar == idx) | (ar == idx + 1)).to(axis.dtype)
+def _window(axis: torch.Tensor, q: torch.Tensor):
+    """(nodes [C, 3], hat weights [C, 3]) of the nodes idx - 1, idx, idx + 1
+    around each query q [C], idx the lower node of its bracket: the nodes
+    clamped into the axis, the weight 0 at a node off it.  Each weight is
+    picked from hat_weight_matrix's row by a one-hot sum (one non-zero
+    term, so exact), and its gradient flows back to it elementwise."""
+    w = iops.hat_weight_matrix(axis, q[:, None])[:, 0]             # [C, n]
+    n = axis.shape[0]
+    idx = (iops.locate(axis, q).idx[:, None]
+           + torch.arange(-1, 2, device=axis.device))              # [C, 3]
+    pick = idx[:, :, None] == torch.arange(n, device=axis.device)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    wk = torch.where(pick, w[:, None, :], zero).sum(-1)
+    return idx.clamp(0, n - 1), wk
+
+
+def _corner_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the corner axis 1 of t [C, K, ...] in corner order, one
+    elementwise add a corner, so that a row's sum is the same in any
+    batch."""
+    terms = t.unbind(1)
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
+    return out
 
 
 def derive_isochrone(grid: IsochroneGrid, feh: torch.Tensor,
@@ -103,34 +133,41 @@ def derive_isochrone(grid: IsochroneGrid, feh: torch.Tensor,
     """EEP-aligned 2x2x2 interpolation over (FeH, Y, logAge), queries [C].
 
     Per axis the boundary-clamped lerp weights are the hat basis at the
-    query (non-zero only on the two bracketing nodes, so this is exactly
-    the corner blend); the blend is three small contractions.  A padded
-    corner does not drag a valid EEP's magnitudes: mags are blended with
-    weight w * valid and renormalised.
+    query: non-zero only on the two bracketing nodes, so the blend is
+    exactly the corner blend.  torch's clamp passes the gradient at its
+    ends, so at an exact node hit the node below the bracket carries a
+    derivative too; the blend therefore runs over the 3 x 3 x 3 window of
+    nodes around the query, which holds every weight and every derivative
+    of the dense hat-basis blend.  Its 27 corners are gathered and summed
+    in a fixed order by elementwise operations: no library product, whose
+    summation order can follow the number of chains, so each chain's row
+    is the same in any batch.  A padded corner does not drag a valid EEP's
+    magnitudes: mags are blended with weight w * valid and renormalised.
     """
-    wf = iops.hat_weight_matrix(grid.feh, feh[:, None])[:, 0]   # [C, F]
-    wy = iops.hat_weight_matrix(grid.y, y[:, None])[:, 0]       # [C, Y]
-    wa = iops.hat_weight_matrix(grid.age, age[:, None])[:, 0]   # [C, A]
+    C = feh.shape[0]
+    E = grid.n_eep
+    fi, wf = _window(grid.feh, feh)
+    yi, wy = _window(grid.y, y)
+    ai, wa = _window(grid.age, age)
     inside = (
         (feh >= grid.feh[0]) & (feh <= grid.feh[-1])
         & (y >= grid.y[0]) & (y <= grid.y[-1])
         & (age >= grid.age[0]) & (age <= grid.age[-1])
     )
-    w3 = wf[:, :, None, None] * wy[:, None, :, None] * wa[:, None, None, :]
-    mass = torch.einsum("cfya,fyae->ce", w3, grid.mass)
-    agb_tip = torch.einsum("cfya,fya->c", w3, grid.agb_tip)
-    wv3 = w3[..., None] * grid.valid                       # [C, F, Y, A, E]
-    wv = wv3.sum(dim=(1, 2, 3))                            # [C, E]
-    mags_num = torch.einsum("cfyae,fyaeb->ceb", wv3, grid.mags)
+    w27 = (wf[:, :, None, None] * wy[:, None, :, None]
+           * wa[:, None, None, :]).reshape(C, 27)
+    at = grid.corner_pack[fi[:, :, None, None], yi[:, None, :, None],
+                          ai[:, None, None, :]].reshape(C, 27, -1)
+    blend = _corner_sum(w27[:, :, None] * at)              # [C, D]
+    mass, wv = blend[:, :E], blend[:, E:2 * E]
+    agb_tip = blend[:, 2 * E]
+    mags_num = blend[:, 2 * E + 1:].reshape(C, E, -1)
     mags = mags_num / wv.clamp_min(1e-12)[..., None]
     # An EEP is valid only when EVERY corner of the bracketing cell is,
-    # including zero-weight corners at exact node hits.
-    p3 = (
-        _bracket(grid.feh, feh)[:, :, None, None]
-        * _bracket(grid.y, y)[:, None, :, None]
-        * _bracket(grid.age, age)[:, None, None, :]
-    )[..., None]
-    valid = 1.0 - torch.amax(p3 * (1.0 - grid.valid), dim=(1, 2, 3))
+    # including zero-weight corners at exact node hits: the window's
+    # corners 1 and 2 on each axis.
+    cell = at.reshape(C, 3, 3, 3, -1)[:, 1:, 1:, 1:, E:2 * E]
+    valid = 1.0 - torch.amax((1.0 - cell).reshape(C, 8, E), dim=1)
 
     mass_sorted = _mass_sorted(mass, valid)
     min_mass = torch.amin(

@@ -141,7 +141,29 @@ def hat_weight_matrix(x_axis: torch.Tensor, xq: torch.Tensor,
 
 def interp1d_dense(x_axis: torch.Tensor, y: torch.Tensor, xq: torch.Tensor,
                    smooth: bool = False) -> torch.Tensor:
-    """Piecewise-linear lookup as W @ y: x_axis [..., E], y [..., E, P],
-    xq [..., Q] -> [..., Q, P].  The product runs in full float32 (the
-    package turns TF32 off at import)."""
-    return hat_weight_matrix(x_axis, xq, smooth=smooth) @ y
+    """Piecewise-linear lookup W @ y, W = hat_weight_matrix: x_axis [..., E]
+    (increasing), y [..., E, P], xq [..., Q] -> [..., Q, P].
+
+    A row of W is zero off the two nodes that bracket its query, and
+    torch's clamp gives the node below them a derivative at an exact node
+    hit, so the product is summed over the window of three nodes idx - 1,
+    idx, idx + 1 (idx from `locate`) in that order, by elementwise
+    operations: each row of the result depends on its own inputs alone,
+    which a batched product's summation order does not promise.  (Only
+    where four nodes tie at the query does W have a non-zero weight off
+    the window; its weights do not sum to one there either.)"""
+    w = hat_weight_matrix(x_axis, xq, smooth=smooth)          # [..., Q, E]
+    lead = w.shape[:-2]
+    E = x_axis.shape[-1]
+    axis = x_axis.expand(lead + (E,)).contiguous()
+    idx = torch.searchsorted(axis, xq.expand(w.shape[:-1]).contiguous(),
+                             right=True) - 1
+    e = (idx.clamp(0, E - 2)[..., None]
+         + torch.arange(-1, 2, device=idx.device))            # [..., Q, 3]
+    ec = e.clamp(0, E - 1)
+    wk = torch.where(e >= 0, torch.gather(w, -1, ec), 0.0)
+    yb = y.expand(lead + y.shape[-2:])
+    yk = torch.gather(yb, -2, ec.flatten(-2)[..., None].expand(
+        ec.shape[:-2] + (ec.shape[-2] * 3, yb.shape[-1])))
+    t = wk[..., None] * yk.unflatten(-2, ec.shape[-2:])      # [..., Q, 3, P]
+    return t[..., 0, :] + t[..., 1, :] + t[..., 2, :]

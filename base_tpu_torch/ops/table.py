@@ -20,6 +20,8 @@ touch, and `csrc/table.cu` follows it operation for operation.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from base_tpu_torch.ops import build
@@ -114,10 +116,49 @@ def _weights(m2, xl, inv_dl, xr, inv_dr):
     return up_s + dn_s - 1.0, up, dn
 
 
+class _Entry(NamedTuple):
+    """One step of a walk along the nodes' windows: per node [C, N], the
+    base-axis entry e (clamped into the axis), whether e lies in the
+    node's window, the entry's columns and the node's weight and ramps."""
+
+    e: torch.Tensor
+    inside: torch.Tensor
+    xl: torch.Tensor
+    idl: torch.Tensor
+    xr: torch.Tensor
+    idr: torch.Tensor
+    w: torch.Tensor
+    up: torch.Tensor
+    dn: torch.Tensor
+
+
+def _window_walk(m2N, xl, inv_dl, xr, inv_dr):
+    """The plain versions' sparse form: each node's window lo..hi of
+    base-axis entries (the table kernels' rule, hat_zero_bounds and
+    hat_window: it holds every non-zero weight and factor 6u(1-u)), walked
+    entry by entry, one _Entry a step for all nodes at once.  Sums in
+    that order are the products W @ ... with every row computed from its
+    own inputs alone, which a batched product's summation order does not
+    promise; an entry outside a node's window adds an exact zero."""
+    lo, hi = hat_window(m2N, *hat_zero_bounds(xl, inv_dl, xr, inv_dr))
+    width = (hi - lo + 1).clamp_min(0)                   # [C, N]
+    E2 = xl.shape[1]
+    m2 = m2N[:, 0]
+    for k in range(int(width.max()) if width.numel() else 0):
+        e = (lo + k).clamp(max=E2 - 1)
+        cols = [c[:, :, 0].gather(1, e) for c in (xl, inv_dl, xr, inv_dr)]
+        w, up, dn = _weights(m2, *cols)
+        yield _Entry(e, k < width, *cols, torch.where(k < width, w, 0.0),
+                     up, dn)
+
+
 def table_fwd_plain(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr):
     """Plain PyTorch version of kernel 1: [C, B, N]."""
-    w, _, _ = _weights(m2N, xl, inv_dl, xr, inv_dr)
-    mags2 = secT @ w                                     # [C, B, N]
+    C, B, N = app1N.shape
+    mags2 = torch.zeros_like(app1N)
+    for s in _window_walk(m2N, xl, inv_dl, xr, inv_dr):
+        sec = secT.gather(2, s.e[:, None, :].expand(C, B, N))
+        mags2 = mags2 + s.w[:, None, :] * sec
     f1 = torch.exp(-LN10_04 * app1N)
     f2 = litN * torch.exp(-LN10_04 * mags2)
     return -INV_LN10_04 * torch.log(f1 + f2)
@@ -126,24 +167,34 @@ def table_fwd_plain(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr):
 def table_bwd_plain(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr, g):
     """Plain PyTorch version of kernel 2: the analytic cotangents
     (dapp1, dm2, dlit, dsecT, dxl, dinv_dl, dxr, dinv_dr)."""
-    w, up, dn = _weights(m2N, xl, inv_dl, xr, inv_dr)
-    mags2 = secT @ w
+    C, B, N = app1N.shape
+    steps = list(_window_walk(m2N, xl, inv_dl, xr, inv_dr))
+    secs = [secT.gather(2, s.e[:, None, :].expand(C, B, N)) for s in steps]
+    mags2 = torch.zeros_like(app1N)
+    for s, sec in zip(steps, secs):
+        mags2 = mags2 + s.w[:, None, :] * sec
     f1 = torch.exp(-LN10_04 * app1N)
     f2m = torch.exp(-LN10_04 * mags2)
     F = f1 + litN * f2m
     dapp1 = g * f1 / F
     dmags2 = g * litN * f2m / F                          # [C, B, N]
     dlit = (g * (-INV_LN10_04) * f2m / F).sum(1, keepdim=True)
-    dW = secT.transpose(1, 2) @ dmags2                   # [C, E2, N]
-    dup = dW * (6.0 * up * (1.0 - up))
-    ddn = dW * (6.0 * dn * (1.0 - dn))
-    dm2 = (dup * inv_dl - ddn * inv_dr).sum(1, keepdim=True)
-    dsec = dmags2 @ w.transpose(1, 2)                    # [C, B, E2]
-    dxl = (dup * (-inv_dl)).sum(2, keepdim=True)
-    didl = (dup * (m2N - xl)).sum(2, keepdim=True)
-    dxr = (ddn * inv_dr).sum(2, keepdim=True)
-    didr = (ddn * (xr - m2N)).sum(2, keepdim=True)
-    return dapp1, dm2, dlit, dsec, dxl, didl, dxr, didr
+    m2 = m2N[:, 0]
+    dm2 = torch.zeros_like(m2)
+    dsec = torch.zeros_like(secT)
+    daxis = [torch.zeros_like(xl[:, :, 0]) for _ in range(4)]
+    for s, sec in zip(steps, secs):
+        dW = (sec * dmags2).sum(1)                       # [C, N]
+        dup = torch.where(s.inside, dW * (6.0 * s.up * (1.0 - s.up)), 0.0)
+        ddn = torch.where(s.inside, dW * (6.0 * s.dn * (1.0 - s.dn)), 0.0)
+        dm2 = dm2 + (dup * s.idl - ddn * s.idr)
+        dsec.scatter_add_(2, s.e[:, None, :].expand(C, B, N),
+                          dmags2 * s.w[:, None, :])
+        for acc, term in zip(daxis, (dup * (-s.idl), dup * (m2 - s.xl),
+                                     ddn * s.idr, ddn * (s.xr - m2))):
+            acc.scatter_add_(1, s.e, term)
+    dxl, didl, dxr, didr = (t[:, :, None] for t in daxis)
+    return dapp1, dm2[:, None, :], dlit, dsec, dxl, didl, dxr, didr
 
 
 # Shared memory a block may ask for on Hopper (227 KB); csrc/table.cu asks

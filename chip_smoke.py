@@ -215,7 +215,9 @@ imports nothing of JAX.
 
     python3 chip_smoke.py --times-only [--root DIR]
 
-runs phases 1 and 5 alone and prints the per-kernel JSON; with --root it
+runs phases 1, 5 and 6 alone and prints the density calls' JSON (phase
+6's profiler pass: wall and device ms per call, device kernels per call)
+and the per-kernel JSON; with --root it
 times the base_tpu_torch found under DIR (another checkout), so that two
 versions can be compared on one card in one call.  With --save-outputs
 PATH it also saves kernels 1 and 4's inputs and outputs at both shapes,
@@ -511,9 +513,61 @@ def check_marglik(marg_in, label: str) -> dict:
     return abs_errs
 
 
+def isochrone_dense(grid, feh, y, age):
+    """derive_isochrone's blend through einsums over every node of the grid
+    (its form until the 27-corner window replaced it): (mass, mags,
+    agb_tip), a reference for the window form."""
+    from base_tpu_torch.ops import interp as iops
+
+    wf = iops.hat_weight_matrix(grid.feh, feh[:, None])[:, 0]
+    wy = iops.hat_weight_matrix(grid.y, y[:, None])[:, 0]
+    wa = iops.hat_weight_matrix(grid.age, age[:, None])[:, 0]
+    w3 = wf[:, :, None, None] * wy[:, None, :, None] * wa[:, None, None, :]
+    wv3 = w3[..., None] * grid.valid
+    return (torch.einsum("cfya,fyae->ce", w3, grid.mass),
+            torch.einsum("cfyae,fyaeb->ceb", wv3, grid.mags)
+            / wv3.sum(dim=(1, 2, 3)).clamp_min(1e-12)[..., None],
+            torch.einsum("cfya,fya->c", w3, grid.agb_tip))
+
+
+def table_fwd_dense(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr):
+    """Kernel 1's function through the dense products over every base-axis
+    entry (secT @ W): a reference independent of the window rule that the
+    kernels and their plain versions share."""
+    from base_tpu_torch.ops import table as tb
+
+    w, _, _ = tb._weights(m2N, xl, inv_dl, xr, inv_dr)
+    f1 = torch.exp(-tb.LN10_04 * app1N)
+    f2 = litN * torch.exp(-tb.LN10_04 * (secT @ w))
+    return -tb.INV_LN10_04 * torch.log(f1 + f2)
+
+
+def table_bwd_dense(app1N, m2N, litN, secT, xl, inv_dl, xr, inv_dr, g):
+    """Kernel 2's cotangents through the dense products (secT @ W and its
+    three transposed products), as table_fwd_dense."""
+    from base_tpu_torch.ops import table as tb
+
+    w, up, dn = tb._weights(m2N, xl, inv_dl, xr, inv_dr)
+    f1 = torch.exp(-tb.LN10_04 * app1N)
+    f2m = torch.exp(-tb.LN10_04 * (secT @ w))
+    F = f1 + litN * f2m
+    dmags2 = g * litN * f2m / F                          # [C, B, N]
+    dW = secT.transpose(1, 2) @ dmags2                   # [C, E2, N]
+    dup = dW * (6.0 * up * (1.0 - up))
+    ddn = dW * (6.0 * dn * (1.0 - dn))
+    return (g * f1 / F, (dup * inv_dl - ddn * inv_dr).sum(1, keepdim=True),
+            (g * (-tb.INV_LN10_04) * f2m / F).sum(1, keepdim=True),
+            dmags2 @ w.transpose(1, 2),
+            (dup * (-inv_dl)).sum(2, keepdim=True),
+            (dup * (m2N - xl)).sum(2, keepdim=True),
+            (ddn * inv_dr).sum(2, keepdim=True),
+            (ddn * (xr - m2N)).sum(2, keepdim=True))
+
+
 def check_kernels(model, z, label: str) -> dict:
-    """Each kernel against its plain version on the same CUDA inputs;
-    returns {kernel: max abs error} and raises past the tolerances."""
+    """Each kernel against its plain version on the same CUDA inputs, and
+    kernels 1-2 against the dense products too; returns {kernel: max abs
+    error} and raises past the tolerances."""
     from base_tpu_torch.ops import table as tb
 
     table_in, marg_in = kernel_inputs(model, z)
@@ -524,15 +578,22 @@ def check_kernels(model, z, label: str) -> dict:
     comb_p = tb.table_fwd_plain(*table_in)
     abs_errs["table_fwd"] = checked["table_fwd"] = float(
         (comb_k - comb_p).abs().max())
+    checked["table_fwd vs dense"] = float(
+        (comb_k - table_fwd_dense(*table_in)).abs().max())
     g = torch.randn(comb_p.shape, generator=gen, device=z.device)
+    names = ("dapp1", "dm2", "dlit", "dsecT", "dxl", "dinv_dl", "dxr",
+             "dinv_dr")
+    bwd_k = tb.table_bwd_cuda(*table_in, g)
     abs_errs["table_bwd"], checked["table_bwd"], report = grad_errs(
-        ("dapp1", "dm2", "dlit", "dsecT", "dxl", "dinv_dl", "dxr",
-         "dinv_dr"),
-        tb.table_bwd_cuda(*table_in, g), tb.table_bwd_plain(*table_in, g))
+        names, bwd_k, tb.table_bwd_plain(*table_in, g))
+    _, checked["table_bwd vs dense"], report_d = grad_errs(
+        names, bwd_k, table_bwd_dense(*table_in, g))
     log(f"  [{label}] table N={comb_p.shape[2]}: fwd max|err| "
         f"{checked['table_fwd']:.3e}; bwd abs/scaled {report}")
+    log(f"  [{label}] table vs the dense products: fwd max|err| "
+        f"{checked['table_fwd vs dense']:.3e}; bwd abs/scaled {report_d}")
     for name, err in checked.items():
-        tol = FWD_TOL if name.endswith("fwd") else GRAD_TOL
+        tol = FWD_TOL if "fwd" in name else GRAD_TOL
         if not err <= tol:
             raise AssertionError(f"{name} [{label}]: error {err:.3e} > {tol}")
     abs_errs.update(check_marglik(marg_in, label))
@@ -1582,8 +1643,10 @@ def run_config4(dev) -> dict:
 # (the benchmark takes 256 + 1024 draws): 64 warmup transitions left the
 # chains short of stationary (split R-hat of age 1.129 after 64 draws on an
 # H100), 128 do not (1.048); the draws were cut from 64 to 48 when phase
-# 11d joined.
-N_WARMUP_NUTS, N_SAMPLES_NUTS, MAX_DEPTH_NUTS = 128, 48, 7
+# 11d joined, and raised to 96 when a density equal to the last bits moved
+# the split R-hat of 48 draws (about 7 effective draws a chain) from 1.078
+# to 1.152 with the same mean and sd: at 48 the gate read noise.
+N_WARMUP_NUTS, N_SAMPLES_NUTS, MAX_DEPTH_NUTS = 128, 96, 7
 
 
 def age_summary(xs) -> dict:
@@ -1797,6 +1860,13 @@ CHECK_ROWS5_BWD = 2
 # on an H100 0.0062 dex (5.0 of their sd) below.  So the age is held to the
 # truth within that offset, not within sd.
 AGE_TOL5 = 0.03
+# The recipe's settings (smc_10k_tpu.py:72-75, 109-111), shared with
+# scripts/torch_smc_parity.py: full-rank VI, then SMC from vi_q0.
+VI_CFG5 = dict(n_steps=600, n_mc=8, full_rank=True, learning_rate=2e-2,
+               init_log_sd=-4.0)
+SMC_CFG5 = dict(max_stages=30, n_move=3)
+VI_SEED5, SMC_SEED5 = 5, 7
+NAMES5 = ("logAge", "Y", "FeH", "mod", "Av")
 
 
 def make_data5():
@@ -1844,6 +1914,63 @@ def vi_q0(res, z0, free):
                                   device=dev) @ L_q.T
 
     return sample_q0, log_q0
+
+
+def config5_model(mags, sigmas, dev, upsample: int = UPSAMPLE5):
+    """(model, transform, free mask, z at the truth) of config 5 on the
+    photometry (mags, sigmas) [S, B]: smc_10k_tpu.py's model (the grid at
+    n_eep 64, cm_prior 0.99, n_q 8) at `upsample`."""
+    from base_tpu_torch.grids import synthetic
+    from base_tpu_torch.model import posterior as post
+    from base_tpu_torch.model.stardata import make_ms_stars
+
+    model = post.make_single_pop_model(
+        synthetic.make_grid(n_eep=N_EEP, device=dev),
+        make_ms_stars(mags, sigmas, cm_prior=0.99, device=dev), TRUTH,
+        PRIOR_SIGMA, n_q=N_Q, upsample=upsample, device=dev)
+    tr = post.default_transform(model)
+    z0 = tr.inverse(torch.as_tensor(TRUTH, device=dev))
+    return model, tr, post.free_mask(model), z0
+
+
+def run_vi5(fz, z0):
+    """The recipe's VI from z0 (VI_CFG5, 100-step chunks)."""
+    from base_tpu_torch.inference.vi import VIConfig, run_vi_chunked
+
+    gen = torch.Generator(device=z0.device).manual_seed(VI_SEED5)
+    return run_vi_chunked(fz, z0, gen, VIConfig(**VI_CFG5), chunk_steps=100)
+
+
+def smc_runner5(fz, vres, z0, free, n_rep: int, n_particles: int):
+    """The recipe's SMC runner: from vi_q0 of the VI result, SMC_CFG5,
+    n_rep replicates of n_particles (call it with smc_generator5)."""
+    from base_tpu_torch.inference.smc import (SMCConfig,
+                                              make_smc_chunked_runner)
+
+    sample_q0, log_q0 = vi_q0(vres, z0, free)
+    return make_smc_chunked_runner(
+        fz, sample_q0, log_q0, SMCConfig(n_particles=n_particles, **SMC_CFG5),
+        n_rep=n_rep)
+
+
+def smc_generator5(dev) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(SMC_SEED5)
+
+
+def smc_posterior5(xs: np.ndarray, n_rep: int) -> dict:
+    """smc_10k_tpu.py's posterior summary of particles xs [n_rep * N, 9]
+    (replicate-major): per cluster parameter the mean, the pooled sd, the
+    truth, z = (mean - truth) / sd and rep_spread (the sd of the
+    replicates' means over the pooled sd)."""
+    pooled_sd = xs.std(0)
+    spread = xs.reshape(n_rep, -1, 9).mean(1).std(0) / np.maximum(
+        pooled_sd, 1e-9)
+    return {n: dict(mean=float(xs[:, i].mean()), sd=float(pooled_sd[i]),
+                    truth=float(TRUTH[i]),
+                    z=float((xs[:, i].mean() - TRUTH[i])
+                            / max(pooled_sd[i], 1e-9)),
+                    rep_spread=float(spread[i]))
+            for i, n in enumerate(NAMES5)}
 
 
 def check_rows(table_in, marg_in, rows, label: str) -> dict:
@@ -1937,35 +2064,20 @@ def run_config5(dev) -> dict:
     (c) kernels 1 and 3 against plain at S = 10 000 on 4 of the SMC's 1024
     rows, kernels 2 and 4 at VI's 8 rows, and their times beside their
     bounds at both shapes; the peak memory of the SMC run."""
-    from base_tpu_torch.inference.smc import (SMCConfig,
-                                              make_smc_chunked_runner)
-    from base_tpu_torch.inference.vi import (VIConfig, run_vi_chunked,
-                                             sample_posterior)
+    from base_tpu_torch.inference.vi import sample_posterior
     from base_tpu_torch.model import posterior as post
-    from base_tpu_torch.model.stardata import make_ms_stars
-    from base_tpu_torch.grids import synthetic
 
     t0 = time.perf_counter()
-    mags, sig = make_data5()
-    model = post.make_single_pop_model(
-        synthetic.make_grid(n_eep=N_EEP, device=dev),
-        make_ms_stars(mags, sig, cm_prior=0.99, device=dev), TRUTH,
-        PRIOR_SIGMA, n_q=N_Q, upsample=UPSAMPLE5, device=dev)
-    tr = post.default_transform(model)
-    free = post.free_mask(model)
-    z0 = tr.inverse(torch.as_tensor(TRUTH, device=dev))
+    model, tr, free, z0 = config5_model(*make_data5(), dev)
     log(f"config 5: {N_STARS5} stars, upsample {UPSAMPLE5}, free {free}; "
         f"data and model {time.perf_counter() - t0:.2f} s")
 
     log("phase 11a: full-rank VI, 600 steps, n_mc 8")
     fz, calls = counted(post.make_logpost_z_fn(model, tr))
-    vcfg = VIConfig(n_steps=600, n_mc=8, full_rank=True, learning_rate=2e-2,
-                    init_log_sd=-4.0)
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    vres = run_vi_chunked(fz, z0, torch.Generator(device=dev).manual_seed(5),
-                          vcfg, chunk_steps=100)
+    vres = run_vi5(fz, z0)
     torch.cuda.synchronize()
     vi = dict(wall_s=time.perf_counter() - t0, density_calls=calls[0],
               final_elbo=float(vres.final_elbo), launches=launch_counts())
@@ -1974,26 +2086,19 @@ def run_config5(dev) -> dict:
 
     log(f"phase 11b: tempered SMC, {N_REP5} replicates x {N_PARTICLES5} "
         f"particles, n_move 3, max_stages 30")
-    sample_q0, log_q0 = vi_q0(vres, z0, free)
-    scfg = SMCConfig(n_particles=N_PARTICLES5, max_stages=30, n_move=3)
     calls[0] = 0
-    runner = make_smc_chunked_runner(fz, sample_q0, log_q0, scfg,
-                                     n_rep=N_REP5)
+    runner = smc_runner5(fz, vres, z0, free, N_REP5, N_PARTICLES5)
     reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    z_part, info = runner(torch.Generator(device=dev).manual_seed(7))
+    z_part, info = runner(smc_generator5(dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
     xs = tr.forward(z_part).double().cpu().numpy()
-    xr = xs.reshape(N_REP5, -1, 9)
-    pooled_sd = xs.std(0)
-    spread = xr.mean(1).std(0) / np.maximum(pooled_sd, 1e-9)
-    names = ("logAge", "Y", "FeH", "mod", "Av")
     smc = dict(
         wall_s=wall, density_calls=calls[0], rows_per_call=N_REP5
         * N_PARTICLES5, ms_per_call=1e3 * wall / max(calls[0], 1),
@@ -2003,13 +2108,7 @@ def run_config5(dev) -> dict:
         log_evidence=info["log_evidence"],
         log_evidence_se=info["log_evidence_se"],
         log_evidences=info["log_evidences"].tolist(),
-        peak_memory_gb=peak_gb,
-        posterior={n: dict(mean=float(xs[:, i].mean()),
-                           sd=float(pooled_sd[i]), truth=float(TRUTH[i]),
-                           z=float((xs[:, i].mean() - TRUTH[i])
-                                   / max(pooled_sd[i], 1e-9)),
-                           rep_spread=float(spread[i]))
-                   for i, n in enumerate(names)})
+        peak_memory_gb=peak_gb, posterior=smc_posterior5(xs, N_REP5))
     vi_age = tr.forward(sample_posterior(
         vres, torch.Generator(device=dev).manual_seed(8), 4096))[:, 0]
     smc.update(vi_age_mean=float(vi_age.mean()), vi_age_sd=float(vi_age.std()))
@@ -2037,7 +2136,7 @@ def run_config5(dev) -> dict:
     work = table_work(inputs, bwd=False)
     del inputs
     z_vi = sample_posterior(vres, torch.Generator(device=dev).manual_seed(6),
-                            vcfg.n_mc)
+                            VI_CFG5["n_mc"])
     inputs_vi = kernel_inputs(model, z_vi)
     rows_vi = torch.arange(CHECK_ROWS5_BWD, device=dev)
     errs.update(check_bwd_rows(*inputs_vi, rows_vi, "config 5 VI"))
@@ -3918,7 +4017,8 @@ class PhaseClock:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times-only", action="store_true",
-                    help="phases 1 and 5 only: build and time the kernels")
+                    help="phases 1, 5 and 6 only: build and time the kernels "
+                         "and the density calls")
     ap.add_argument("--root", default=None,
                     help="time the base_tpu_torch of this checkout instead")
     ap.add_argument("--save-outputs", default=None, metavar="PATH",
@@ -3940,7 +4040,11 @@ def main() -> None:
             compare_outputs(args.against)
         log("phase 5: kernel times (CUDA events) and bounds")
         report = kernel_report(model, model_up4, z)
-        density_walls(models, z)
+        walls = density_walls(models, z)
+        log("phase 6: torch.profiler, density + gradient")
+        shares = {label: device_shares(m, z, label, walls[label])
+                  for label, m in models.items()}
+        print(json.dumps({"density": shares}))
         print(json.dumps({"kernels": report}))
         return
 

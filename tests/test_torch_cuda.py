@@ -993,3 +993,77 @@ def test_slow_check_case_short_on_the_card(cuda, monkeypatch, case):
     assert res["evaluations"] == (1 + 12 * 2 if case == "A" else 12)
     assert res["launches"]["marglik_fwd"] == res["evaluations"]
     assert all(np.isfinite(p["mean"]) for p in res["posterior"].values())
+
+
+ROWS_SUBSETS = ((0, 1), (0, 8), (8, 24), (24, 64), (63, 64), (0, 63))
+
+
+def test_rows_equal_subsets_on_the_card(cuda):
+    """chip_smoke.py's config-1 bench model at 64 chains on the card: the
+    rows of derive_isochrone for subsets of the batch (1 to 63 rows)
+    equal the batch's bit for bit (the blend is elementwise); log_post's
+    value and gradient for the same subsets are held to the card-vs-CPU
+    density tolerances (chip_smoke DENSITY_REL_TOL, DENSITY_GRAD_TOL) and
+    their largest differences are printed and written to
+    chiprun_out/rows_card.json.  The window blend is held against the
+    einsum blend it replaced at the kernel gates' tolerances (FWD_TOL on
+    the values, GRAD_TOL on the scaled gradients).  Run from the
+    repository root."""
+    import json
+    import os
+
+    import chip_smoke
+    from base_tpu_torch.grids.isochrone import derive_isochrone
+
+    model = chip_smoke.make_model(chip_smoke.make_data(), cuda)
+    z = chip_smoke.chain_points(model, 0.05, seed=1)
+    x = chip_smoke.transform(model).forward(z)
+    grid = model.grid
+
+    def iso(p):
+        i = derive_isochrone(grid, p[:, 2], p[:, 1], p[:, 0])
+        return [i.mass, i.mags, i.valid, i.agb_tip, i.in_bounds,
+                i.mass_sorted, i.min_mass]
+
+    vg = chip_smoke.density_fn(model)
+    full_iso, (lp, g) = iso(x), vg(z)
+    diffs = {"log_post": 0.0, "grad": 0.0}
+    for lo, hi in ROWS_SUBSETS:
+        for a, b in zip(full_iso, iso(x[lo:hi])):
+            assert torch.equal(a[lo:hi], b), (lo, hi)
+        lp_s, g_s = vg(z[lo:hi])
+        diffs["log_post"] = max(diffs["log_post"], float(
+            ((lp[lo:hi] - lp_s).abs() / lp_s.abs().clamp_min(1.0)).max()))
+        diffs["grad"] = max(diffs["grad"], float(
+            (g[lo:hi] - g_s).abs().max() / g_s.abs().max()))
+    assert diffs["log_post"] <= chip_smoke.DENSITY_REL_TOL
+    assert diffs["grad"] <= chip_smoke.DENSITY_GRAD_TOL
+
+    q = x[:, :3].detach().clone().requires_grad_(True)
+    q_old = q.detach().clone().requires_grad_(True)
+    new = derive_isochrone(grid, q[:, 2], q[:, 1], q[:, 0])
+    old = chip_smoke.isochrone_dense(grid, q_old[:, 2], q_old[:, 1],
+                                     q_old[:, 0])
+    valid = new.valid > 0.5
+    errs = {}
+    for name, a, b in zip(("mass", "mags", "agb_tip"),
+                          (new.mass, new.mags, new.agb_tip), old):
+        sel = valid if a.shape[:2] == valid.shape else slice(None)
+        errs[name] = float((a[sel] - b[sel]).detach().abs().max())
+        assert errs[name] <= chip_smoke.FWD_TOL, (name, errs[name])
+        w = _randn(a.shape, cuda, seed=3)
+        if a.shape[:2] == valid.shape:
+            w = w * valid.reshape(valid.shape + (1,) * (a.ndim - 2))
+        (ga,) = torch.autograd.grad((a * w).sum(), q, retain_graph=True)
+        (gb,) = torch.autograd.grad((b * w).sum(), q_old, retain_graph=True)
+        errs[f"d{name}"] = float((ga - gb).abs().max() / gb.abs().max())
+        assert errs[f"d{name}"] <= chip_smoke.GRAD_TOL, (name, errs)
+    res = dict(card=chip_smoke.nvidia_smi(), chains=int(z.shape[0]),
+               subsets=ROWS_SUBSETS, isochrone_rows_bit_equal=True,
+               log_post_max_rel_diff=diffs["log_post"],
+               grad_max_scaled_diff=diffs["grad"],
+               window_vs_einsum=errs)
+    print("rows on the card:", json.dumps(res))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "rows_card.json"), "w") as f:
+        json.dump(res, f)

@@ -105,7 +105,7 @@ def _value_and_grad(model, pts):
     return v.detach().numpy(), g.numpy()
 
 
-def test_log_post_at_29_bands_matches_jax(wide_grid):
+def test_log_post_at_29_bands_matches_jax(wide_grid, monkeypatch):
     """log_post and its gradient on a 29-band grid (10 simulated stars,
     binaries, upsample 1, the plain path) against jax.value_and_grad of
     base_tpu.  In float32 the value to 3e-4 relative, as
@@ -113,9 +113,18 @@ def test_log_post_at_29_bands_matches_jax(wide_grid):
     bands' large per-star terms that cancel, so both are evaluated in
     float64 too (base_tpu under jax.enable_x64): there the port's value is
     held to base_tpu's to 1e-6 relative and its gradient to 1e-4 of the
-    largest component (6e-8 and 8e-6 here), and the port's float32 gradient
-    to base_tpu's float64 one to 2e-3 (1.7e-3 here; jitted base_tpu's own
-    float32 gradient sits 2.2e-2 from it, in the absorption component)."""
+    largest component (6e-8 and 8e-6 here).  The port's float32 gradient
+    is held to base_tpu's float64 one in two parts.  (a) With only the
+    likelihood over the segment table (likelihood.ms_total_loglik) run in
+    float64, the float32 error of everything upstream of it (the
+    isochrone blend, the secondary lookup, the table) stays within 2e-3
+    of the largest component (2.5e-4 with the einsum blend and W @ y,
+    3.6e-4 with the window forms).  (b) The whole float32 gradient sits no
+    farther from float64 than jitted base_tpu's own float32 gradient does
+    on the same points (1.1e-2 and 2.3e-2 here, in the absorption
+    component): the rest of its error is the likelihood's float32
+    arithmetic, whose cancelling sums move it by ~1e-2 when a table
+    magnitude moves by an ulp, in either package."""
     from base_tpu_torch.sim.scatter import scatter_cluster
     from base_tpu_torch.sim.simulate import simulate_cluster
 
@@ -141,7 +150,7 @@ def test_log_post_at_29_bands_matches_jax(wide_grid):
         return map(np.asarray, jax.jit(jax.vmap(jax.value_and_grad(
             lambda q: jpost.log_post(model, q))))(p))
 
-    want_v, _ = jax_value_and_grad(jm, jnp.asarray(pts))
+    want_v, want_g = jax_value_and_grad(jm, jnp.asarray(pts))
     with jax.enable_x64(True):
         jm64 = jax.tree_util.tree_map(
             lambda a: a.astype(jnp.float64)
@@ -158,4 +167,13 @@ def test_log_post_at_29_bands_matches_jax(wide_grid):
                                  1e-6 * np.maximum(np.abs(want64_v), 1.0))
     scale = np.abs(want64_g).max()
     assert np.abs(got64_g - want64_g).max() / scale <= 1e-4
-    assert np.abs(got_g - want64_g).max() / scale <= 2e-3
+    ref_err = np.abs(want_g - want64_g).max() / scale
+    assert np.abs(got_g - want64_g).max() / scale <= ref_err
+
+    loglik = tpost.lk.ms_total_loglik
+    monkeypatch.setattr(tpost.lk, "ms_total_loglik",
+                        lambda stars, table, *a: loglik(
+                            _double(stars),
+                            type(table)(*map(_double, table)), *a))
+    _, mixed_g = _value_and_grad(tm, pts)
+    assert np.abs(mixed_g - want64_g).max() / scale <= 2e-3
